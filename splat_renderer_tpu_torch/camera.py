@@ -1,0 +1,101 @@
+"""Orbit camera and projection math (host-side numpy).
+
+Counterpart of `splat_renderer_tpu/camera.py`: `look_at`, `perspective` and
+the orbit `Camera` are the same numpy code, so both packages see bit-equal
+matrices for equal parameters.  `camera_tensors` moves the frame uniform
+(`Camera.arrays()`) onto a device for the render functions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict
+
+import numpy as np
+import torch
+
+CameraArrays = Dict[str, torch.Tensor]
+
+
+def look_at(eye: np.ndarray, target: np.ndarray, up: np.ndarray) -> np.ndarray:
+    """Right-handed view matrix, gl-matrix `mat4.lookAt` semantics."""
+    eye = np.asarray(eye, np.float32)
+    f = target - eye
+    f = f / np.linalg.norm(f)
+    s = np.cross(f, up)
+    s = s / np.linalg.norm(s)
+    u = np.cross(s, f)
+    m = np.eye(4, dtype=np.float32)
+    m[0, :3] = s
+    m[1, :3] = u
+    m[2, :3] = -f
+    m[0, 3] = -np.dot(s, eye)
+    m[1, 3] = -np.dot(u, eye)
+    m[2, 3] = np.dot(f, eye)
+    return m
+
+
+def perspective(fov_y_rad: float, aspect: float, near: float, far: float) -> np.ndarray:
+    """GL-style perspective (clip z in [-1, 1]), gl-matrix
+    `mat4.perspective` semantics."""
+    f = 1.0 / math.tan(fov_y_rad / 2.0)
+    nf = 1.0 / (near - far)
+    m = np.zeros((4, 4), dtype=np.float32)
+    m[0, 0] = f / aspect
+    m[1, 1] = f
+    m[2, 2] = (far + near) * nf
+    m[2, 3] = 2.0 * far * near * nf
+    m[3, 2] = -1.0
+    return m
+
+
+@dataclasses.dataclass
+class Camera:
+    """Orbit camera: target/distance/azimuth/elevation."""
+
+    target: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(3, np.float32)
+    )
+    distance: float = 3.0
+    azimuth: float = 0.5
+    elevation: float = 0.5
+    fov_deg: float = 45.0
+    aspect: float = 1.0
+    near: float = 0.1
+    far: float = 100.0
+
+    def position(self) -> np.ndarray:
+        """Eye position from the spherical orbit parameters."""
+        ce = math.cos(self.elevation)
+        x = self.distance * ce * math.sin(self.azimuth)
+        y = self.distance * math.sin(self.elevation)
+        z = self.distance * ce * math.cos(self.azimuth)
+        return (self.target + np.array([x, y, z], np.float32)).astype(np.float32)
+
+    def view_matrix(self) -> np.ndarray:
+        return look_at(self.position(), self.target, np.array([0, 1, 0], np.float32))
+
+    def projection_matrix(self) -> np.ndarray:
+        return perspective(
+            math.radians(self.fov_deg), self.aspect, self.near, self.far
+        )
+
+    def view_projection_matrix(self) -> np.ndarray:
+        return (self.projection_matrix() @ self.view_matrix()).astype(np.float32)
+
+    def arrays(self, time: float = 0.0) -> Dict[str, np.ndarray]:
+        """Frame uniform: {view_proj (4,4), cam_pos (3,), time ()}."""
+        return {
+            "view_proj": self.view_projection_matrix(),
+            "cam_pos": self.position(),
+            "time": np.float32(time),
+        }
+
+
+def camera_tensors(arrays: Dict[str, np.ndarray], device) -> CameraArrays:
+    """`Camera.arrays()` as float32 tensors on `device`."""
+    return {
+        k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+        for k, v in arrays.items()
+    }

@@ -1,0 +1,54 @@
+from .binning import bin_packed_words, canonical_order, canonical_sort_data
+from .blend import (
+    composite_over_background,
+    ellipse_cos_sin,
+    segmented_exclusive_product,
+    splat_alpha_planes,
+)
+from .compositor import tiles_to_image, tiles_to_plane
+from .oracle import pixel_grid, render_oracle
+from .packing import depth_bits, unpack_words
+from .pipeline import (
+    Engine,
+    animate_demo,
+    demo_scene,
+    model_points,
+    render_frame,
+    render_splats,
+    surface_splats,
+)
+from .projector import (
+    project_planes,
+    screen_planes,
+    shade_planes,
+    splat_screen_records,
+    splat_screen_words,
+)
+
+__all__ = [
+    "Engine",
+    "animate_demo",
+    "bin_packed_words",
+    "canonical_order",
+    "canonical_sort_data",
+    "composite_over_background",
+    "demo_scene",
+    "depth_bits",
+    "ellipse_cos_sin",
+    "model_points",
+    "pixel_grid",
+    "project_planes",
+    "render_frame",
+    "render_oracle",
+    "render_splats",
+    "screen_planes",
+    "segmented_exclusive_product",
+    "shade_planes",
+    "splat_alpha_planes",
+    "splat_screen_records",
+    "splat_screen_words",
+    "surface_splats",
+    "tiles_to_image",
+    "tiles_to_plane",
+    "unpack_words",
+]

@@ -9,10 +9,15 @@ is easy to find.  This package imports torch and never jax.
 - `points`: surface-point seeding, projection onto the surface, curvature
             probe, splat property derivation.
 - `render`: projection to packed record words, canonical-order tile
-            binning, the exact sequential oracle, and the frame pipeline
-            (`render_frame`, `Engine`).
-- `ops`:    the tile-blend CUDA kernel (csrc/tile_blend.cu), its wrapper
-            and its plain PyTorch twin.
+            binning, the exact sequential oracle, the frame pipeline
+            (`render_frame`, `Engine`), the differentiable render
+            (`render_diff`, `render_diff_gbuffer`) and SH appearance.
+- `ops`:    the CUDA kernels (csrc/tile_blend.cu, the exact tile blend;
+            csrc/tile_blend_diff.cu, the differentiable blend's forward
+            and backward), their wrappers and plain PyTorch twins.
+- `fit`:    inverse rendering: `fit_splats` (Adam), `density_control`,
+            `fit_camera`.
+- `utils`:  SSIM and the training losses; splat and checkpoint files.
 - `convert`: state carried across from the JAX package as numpy.
 """
 

@@ -37,6 +37,26 @@ def sqrt_rn(t: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(t.to(torch.float64)).to(t.dtype)
 
 
+def maximum(t: torch.Tensor, c: float) -> torch.Tensor:
+    """`jnp.maximum(t, c)`: the gradient splits in half where t == c.
+
+    `torch.clamp` passes the whole gradient at a bound, `jnp.maximum` and
+    `jnp.clip` give each side half; `torch.maximum` with a tensor bound
+    splits as jnp does.  The bound is a 0-dim CPU tensor, which PyTorch
+    takes beside a tensor on any device, like a Python scalar."""
+    return torch.maximum(t, torch.tensor(c, dtype=t.dtype))
+
+
+def minimum(t: torch.Tensor, c: float) -> torch.Tensor:
+    """`jnp.minimum(t, c)`, with jnp's gradient at a tie (see `maximum`)."""
+    return torch.minimum(t, torch.tensor(c, dtype=t.dtype))
+
+
+def clip(t: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """`jnp.clip(t, lo, hi)`, with jnp's gradient at the bounds."""
+    return minimum(maximum(t, lo), hi)
+
+
 def same_device(t: torch.Tensor, device) -> bool:
     """Whether tensor `t` lives on `device` (an index-less "cuda" matches
     the current CUDA device)."""

@@ -3,7 +3,8 @@
 Counterpart of `splat_renderer_tpu/camera.py`: `look_at`, `perspective` and
 the orbit `Camera` are the same numpy code, so both packages see bit-equal
 matrices for equal parameters.  `camera_tensors` moves the frame uniform
-(`Camera.arrays()`) onto a device for the render functions.
+(`Camera.arrays()`) onto a device for the render functions, and
+`orbit_camera_arrays` builds it from pose tensors under autograd.
 """
 
 from __future__ import annotations
@@ -65,6 +66,11 @@ class Camera:
     near: float = 0.1
     far: float = 100.0
 
+    # interaction clamps, also applied to fitted poses (fit.fit_camera)
+    MAX_ELEVATION = math.pi / 2 - 0.01
+    MIN_DISTANCE = 0.5
+    MAX_DISTANCE = 20.0
+
     def position(self) -> np.ndarray:
         """Eye position from the spherical orbit parameters."""
         ce = math.cos(self.elevation)
@@ -98,4 +104,41 @@ def camera_tensors(arrays: Dict[str, np.ndarray], device) -> CameraArrays:
     return {
         k: torch.as_tensor(np.asarray(v, np.float32), device=device)
         for k, v in arrays.items()
+    }
+
+
+def orbit_camera_arrays(
+    pose: Dict[str, torch.Tensor],
+    fov_deg: float = 45.0,
+    aspect: float = 1.0,
+    near: float = 0.1,
+    far: float = 100.0,
+    time: float = 0.0,
+) -> CameraArrays:
+    """`Camera.arrays()` from pose tensors, differentiable: pose is
+    {"azimuth": (), "elevation": (), "distance": (), "target": (3,)}
+    float32 tensors on one device, so autograd reaches the pose from an
+    image loss (fit.fit_camera).  fov/aspect/near/far stay constants."""
+    az, el, d = pose["azimuth"], pose["elevation"], pose["distance"]
+    target = pose["target"]
+    ce = torch.cos(el)
+    eye = target + d * torch.stack([ce * torch.sin(az), torch.sin(el), ce * torch.cos(az)])
+    f = target - eye
+    f = f / torch.linalg.vector_norm(f)
+    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=eye.device)
+    s = torch.linalg.cross(f, up)
+    s = s / torch.linalg.vector_norm(s)
+    u = torch.linalg.cross(s, f)
+    view = torch.stack([
+        torch.cat([s, -torch.dot(s, eye)[None]]),
+        torch.cat([u, -torch.dot(u, eye)[None]]),
+        torch.cat([-f, torch.dot(f, eye)[None]]),
+        torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float32, device=eye.device),
+    ])
+    proj = torch.as_tensor(perspective(math.radians(fov_deg), aspect, near, far),
+                           device=eye.device)
+    return {
+        "view_proj": proj @ view,
+        "cam_pos": eye,
+        "time": torch.tensor(time, dtype=torch.float32, device=eye.device),
     }

@@ -39,3 +39,22 @@ camera_from_numpy = camera_tensors
 def points_from_numpy(points: np.ndarray, device) -> torch.Tensor:
     """(N, 3) points (e.g. points seeded by the JAX package)."""
     return _f32(points, device)
+
+
+def sh_from_numpy(sh: Mapping[str, np.ndarray], device):
+    """SH coefficients {"r"|"g"|"b": (n_rest, N)} (render/sh.py)."""
+    return {c: _f32(sh[c], device) for c in ("r", "g", "b")}
+
+
+def theta_from_checkpoint(path: str, device):
+    """The fitted fields ("theta") of a `fit_splats` checkpoint written by
+    either package (utils/snapshot.save_pytree: both key a leaf by its path,
+    e.g. `['theta']['cr']`), as a dict of tensors on `device`."""
+    from .utils.snapshot import checkpoint_file
+
+    prefix = "['theta']"
+    with np.load(checkpoint_file(path)) as z:
+        return {
+            k[len(prefix) + 2:-2]: _f32(z[k], device)
+            for k in z.files if k.startswith(prefix + "['")
+        }

@@ -86,6 +86,16 @@ def build(name: str) -> Path:
     return out
 
 
+def build_all(names) -> None:
+    """Build several libraries at once: one nvcc per source, all started
+    together (each `build` waits on its own subprocess)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        list(pool.map(build, names))
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu`'s library, once per
     process."""

@@ -17,6 +17,13 @@ in a layout suited to the GPU:
 
 The blend reads a tile's run [offsets[t], offsets[t+1]) and gathers each
 record's words by rank from the canonical-order word planes.
+
+Three binners share the pair stage (`_pair_stage`): `bin_packed_words` (the
+exact pipeline's quantized words), `bin_planes_diff` (the differentiable
+render's continuous f32 planes, read by csrc/tile_blend_diff.cu) and
+`bin_splats` (float records for the plain tile compositor).  The TPU
+package's 128-lane window tables (`stream_tables`, `block_*`) are not ported:
+a CUDA block walks its tile's run itself.
 """
 
 from __future__ import annotations
@@ -148,6 +155,55 @@ def _diag_prune(
     return c_d, miss
 
 
+def _pair_stage(
+    cx: torch.Tensor,
+    cy: torch.Tensor,
+    radius: torch.Tensor,
+    depth_valid: torch.Tensor,
+    cfg: RenderConfig,
+    ang: Optional[torch.Tensor] = None,
+    ratio: Optional[torch.Tensor] = None,
+) -> Binned:
+    """Expand canonical-order records (rank = row) into (tile, rank) pairs
+    and sort them.
+
+    Slot-major (cap, n) expansion: slot c * n + rank holds footprint tile c
+    of record `rank`, or the sentinel tile `num_tiles`.  One sort of the
+    int64 key `(tile << 32) | rank` orders the N*cap slots; its indices are
+    each sorted pair's slot (`pair_slot`), which the differentiable blend
+    uses to put per-pair gradients back at their record.  Returns offsets,
+    counts, pair_tile, pair_rank (int64) and pair_slot (int64).
+    """
+    n = cx.shape[0]
+    cap = cfg.tiles_per_splat_cap
+    num_tiles = cfg.num_tiles
+    device = cx.device
+    tx0, ty0, w, h = _footprint_cols(cx, cy, radius, depth_valid, cfg,
+                                     ang=ang, ratio=ratio)
+    c_d, miss = _diag_prune(cx, cy, radius, tx0, ty0, w, h, cfg)
+
+    c = torch.arange(cap, device=device)[:, None]  # (cap, 1)
+    dy = c // torch.clamp(w, min=1)[None, :]
+    dx = c - dy * w[None, :]
+    tile = (ty0[None, :] + dy) * cfg.tiles_x + (tx0[None, :] + dx)
+    active = (c < (w * h)[None, :]) & ~((c == c_d[None, :]) & miss[None, :])
+    tile = torch.where(active, tile, num_tiles)
+    rank = torch.arange(n, device=device)[None, :]
+    keys, pair_slot = torch.sort(((tile << 32) | rank).reshape(-1))
+    pair_tile = keys >> 32
+
+    counts = torch.bincount(pair_tile, minlength=num_tiles + 1)[:num_tiles]
+    offsets = torch.zeros(num_tiles + 1, dtype=torch.int64, device=device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return {
+        "offsets": offsets,
+        "counts": counts,
+        "pair_tile": pair_tile,
+        "pair_rank": keys & 0xFFFFFFFF,
+        "pair_slot": pair_slot,
+    }
+
+
 def canonical_order(dkeys: torch.Tensor) -> torch.Tensor:
     """Input indices in canonical compositing order: ascending
     (depth key, input index).  A stable sort of the keys is exactly that."""
@@ -197,9 +253,6 @@ def bin_packed_words(
         raise NotImplementedError(
             "compact_to, class_caps and with_depth are not ported"
         )
-    n = dkeys.shape[0]
-    cap = cfg.tiles_per_splat_cap
-    num_tiles = cfg.num_tiles
     ps, po = cfg.pos_scale, cfg.pos_offset
     inv_ps = 1.0 / ps
 
@@ -217,33 +270,96 @@ def bin_packed_words(
         ratio = f(w_ro >> 24) * INV_RATIO_SCALE
     else:
         ang = ratio = None
-    tx0, ty0, w, h = _footprint_cols(
-        cx, cy, r, dk_s < _INF_KEY, cfg, ang=ang, ratio=ratio
-    )
-    c_d, miss = _diag_prune(cx, cy, r, tx0, ty0, w, h, cfg)
-
-    # ---- pair stage: slot-major (cap, n) expansion, (tile, rank) sort ----
-    c = torch.arange(cap, device=dkeys.device)[:, None]  # (cap, 1)
-    dy = c // torch.clamp(w, min=1)[None, :]
-    dx = c - dy * w[None, :]
-    tile = (ty0[None, :] + dy) * cfg.tiles_x + (tx0[None, :] + dx)
-    active = (c < (w * h)[None, :]) & ~((c == c_d[None, :]) & miss[None, :])
-    tile = torch.where(active, tile, num_tiles)
-    rank = torch.arange(n, device=dkeys.device)[None, :]
-    keys = torch.sort(((tile << 32) | rank).reshape(-1)).values
-    pair_tile = keys >> 32
-    pair_rank = keys & 0xFFFFFFFF
-
-    counts = torch.bincount(pair_tile, minlength=num_tiles + 1)[:num_tiles]
-    offsets = torch.zeros(num_tiles + 1, dtype=torch.int64, device=dkeys.device)
-    offsets[1:] = torch.cumsum(counts, 0)
+    pairs = _pair_stage(cx, cy, r, dk_s < _INF_KEY, cfg, ang=ang, ratio=ratio)
     return {
-        "offsets": offsets.to(torch.int32),
-        "counts": counts.to(torch.int32),
-        "pair_rank": pair_rank.to(torch.int32),
-        "pair_tile": pair_tile.to(torch.int32),
+        "offsets": pairs["offsets"].to(torch.int32),
+        "counts": pairs["counts"].to(torch.int32),
+        "pair_rank": pairs["pair_rank"].to(torch.int32),
+        "pair_tile": pairs["pair_tile"].to(torch.int32),
         "rec_pos": as_int32_bits(w_pos),
         "rec_ro": as_int32_bits(w_ro),
         "rec_rgb": as_int32_bits(w_rgb),
         "order": order,
     }
+
+
+def bin_splats(splat_data_sorted: torch.Tensor, cfg: RenderConfig) -> Binned:
+    """Bin (N, 10) float records that are already in canonical order (see
+    `canonical_sort_data`) into per-tile runs, for the plain tile
+    compositor (`render/compositor.py::render_tiles`).
+
+    Returns pair_splat (the row of each sorted pair's record) and pair_tile
+    (int64, N*cap; the inactive tail holds the sentinel tile num_tiles), and
+    offsets (T+1,) and counts (T,) (int64).  Integer structure only: the
+    caller passes detached records.
+    """
+    d = splat_data_sorted
+    pairs = _pair_stage(
+        d[:, 0], d[:, 1], d[:, 2], torch.isfinite(d[:, 7]), cfg,
+        ang=d[:, 8] if cfg.oriented else None,
+        ratio=d[:, 9] if cfg.oriented else None,
+    )
+    return {
+        "pair_splat": pairs["pair_rank"],
+        "pair_tile": pairs["pair_tile"],
+        "offsets": pairs["offsets"],
+        "counts": pairs["counts"],
+    }
+
+
+# Field order of the differentiable blend's record planes (the columns of
+# bin_planes_diff's "planes"); oriented profiles append the ellipse fields,
+# and depth is always last.
+DIFF_FIELDS = ("cx", "cy", "radius", "opacity", "r", "g", "b")
+DIFF_FIELDS_ORIENTED = DIFF_FIELDS + ("angle", "ratio")
+
+
+def diff_fields(cfg: RenderConfig) -> Tuple[str, ...]:
+    base = DIFF_FIELDS_ORIENTED if cfg.oriented else DIFF_FIELDS
+    return base + ("depth",)
+
+
+def bin_planes_diff(planes: Dict[str, torch.Tensor], cfg: RenderConfig) -> Binned:
+    """Binning for the differentiable blend over continuous (N,) planes
+    (`projector.shade_planes` fields, keyed as in DIFF_FIELDS).
+
+    Returns:
+      offsets (T+1,), counts (T,) int32: tile t's run is pairs
+          [offsets[t], offsets[t+1])
+      pair_tile, pair_rank, pair_slot (N*cap,) int32: each sorted pair's
+          tile, record rank and pre-sort slot (c * n + rank)
+      src (N,) int64: input index of each rank
+      planes (N, nf) float32: the diff_fields columns in canonical order,
+          opacity and colour clipped to [0, 1], culled records' inf depth
+          written as 0 (0 * inf would poison the blend's sums)
+
+    Records are ranked by (depth, input index), as the JAX package's
+    two-key sort does.  All integer structure comes from detached values;
+    `planes` stays differentiable (a gather), which the plain twin of
+    ops/tile_blend_diff.py relies on.  The clip to [0, 1] uses
+    `torch.clamp`, which passes the gradient inside the interval: the JAX
+    package's custom VJP passes it through unchanged, and callers hand in
+    values already clipped (render/diff.py).
+    """
+    fields = diff_fields(cfg)
+    depth = planes["depth"]
+    src = torch.sort(depth.detach(), stable=True).indices
+    depth_s = depth[src]
+    finite = torch.isfinite(depth_s)
+    cols = [
+        torch.clamp(planes[k], 0.0, 1.0)[src] if k in ("opacity", "r", "g", "b")
+        else planes[k][src]
+        for k in fields[:-1]
+    ]
+    cols.append(torch.where(finite, depth_s, 0.0))
+    stacked = torch.stack(cols, dim=1)
+    det = stacked.detach()
+    pairs = _pair_stage(
+        det[:, 0], det[:, 1], det[:, 2], finite, cfg,
+        ang=det[:, 7] if cfg.oriented else None,
+        ratio=det[:, 8] if cfg.oriented else None,
+    )
+    out = {k: v.to(torch.int32) for k, v in pairs.items()}
+    out["src"] = src
+    out["planes"] = stacked
+    return out

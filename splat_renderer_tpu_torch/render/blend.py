@@ -9,7 +9,9 @@ The support cutoff `dist2 <= margin2 * scale2` is a hard threshold: one ulp
 of difference in `dist2` flips a pixel's alpha by about 0.011.  So the
 cutoff is all-multiply, the trig is a fixed polynomial, and no expression
 here may be contracted into a fused multiply-add (eager PyTorch never does;
-the kernel is built with `-fmad=false`).
+the kernel is built with `-fmad=false`).  The differentiable render
+(render/diff.py) runs through `splat_alpha_planes`, so its bounds use
+`_torch_util.maximum`, whose gradient at a tie is jnp's.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Tuple
 
 import torch
 
-from .._torch_util import rdiv
+from .._torch_util import maximum, rdiv
 from ..config import RenderConfig
 
 
@@ -77,7 +79,7 @@ def splat_alpha_planes(
     dy = py - cy
     big_enough = radius >= cfg.min_screen_radius
     if cfg.oriented:
-        rr = torch.clamp(ratio, min=1e-3)
+        rr = maximum(ratio, 1e-3)
         ca, sa = ellipse_cos_sin(angle)
         u = ca * dx + sa * dy
         vr = (-sa * dx + ca * dy) * rr
@@ -91,7 +93,7 @@ def splat_alpha_planes(
 
     scale2 = scale * scale
     # exp argument only: one record-scale coefficient
-    coef = rdiv(-0.5 / (cfg.sigma * cfg.sigma), torch.clamp(scale2, min=1e-12))
+    coef = rdiv(-0.5 / (cfg.sigma * cfg.sigma), maximum(scale2, 1e-12))
     margin2 = cfg.bounds_margin * cfg.bounds_margin
     if cfg.opaque and cfg.quad:
         if cfg.oriented:

@@ -5,7 +5,10 @@ Counterpart of `splat_renderer_tpu/render/projector.py`: every field is
 computed for the whole (N,) batch as elementwise plane math, with the same
 op sequence as the JAX package, so the quantized words come out bit-equal
 (tests/test_torch_render.py).  Word arithmetic runs in int64 (see
-render/packing.py for why).
+render/packing.py for why).  Every jnp.clip/minimum/maximum is written with
+`_torch_util.clip`/`minimum`/`maximum`, which split the gradient at a bound
+as jnp does (`torch.clamp` would not), so the differentiable render
+(render/diff.py) gets JAX's gradients.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from typing import Dict
 
 import torch
 
-from .._torch_util import div, rdiv, sqrt_rn
+from .._torch_util import clip, div, maximum, minimum, rdiv, sqrt_rn
 from ..config import RenderConfig
 from ..points.properties import Splats
 from .packing import (
@@ -86,7 +89,7 @@ def project_planes(
             )
     # cap so the padded bounds box always fits tiles_per_splat_cap tiles
     radius_raw = torch.where(valid, screen_radius, 0.0)
-    screen_radius = torch.clamp(screen_radius, max=cfg.r_cap)
+    screen_radius = minimum(screen_radius, cfg.r_cap)
     screen_radius = torch.where(valid, screen_radius, 0.0)
     depth = torch.where(valid, depth, torch.inf)
     return {
@@ -126,7 +129,7 @@ def shade_planes(
 
     light = torch.tensor(cfg.light_dir, dtype=nx.dtype, device=nx.device)
     light = light / sqrt_rn(torch.sum(light * light))
-    diffuse = torch.clamp(nx * light[0] + ny * light[1] + nz * light[2], min=0.0)
+    diffuse = maximum(nx * light[0] + ny * light[1] + nz * light[2], 0.0)
     lamb = cfg.light_ambient + cfg.light_diffuse * diffuse
 
     ell_radius = proj["radius"]
@@ -137,7 +140,7 @@ def shade_planes(
         inv_w2 = rdiv(1.0, sw * sw)
         half_w = 0.5 * cfg.width
         half_h = 0.5 * cfg.height
-        nlen = torch.clamp(sqrt_rn(nx * nx + ny * ny + nz * nz), min=1e-8)
+        nlen = maximum(sqrt_rn(nx * nx + ny * ny + nz * nz), 1e-8)
         ux, uy, uz = nx / nlen, ny / nlen, nz / nlen
         # J rows: d sx / dp_k = Wh (vp0k w - clip0 vp3k)/w^2,
         #         d sy / dp_k = -Hh (vp1k w - clip1 vp3k)/w^2
@@ -158,20 +161,20 @@ def shade_planes(
         half_tr = 0.5 * (m00 + m11)
         half_df = 0.5 * (m00 - m11)
         root = sqrt_rn(half_df * half_df + m01 * m01)
-        lam_hi = torch.clamp(half_tr + root, min=0.0)
-        lam_lo = torch.clamp(half_tr - root, min=0.0)
+        lam_hi = maximum(half_tr + root, 0.0)
+        lam_lo = maximum(half_tr - root, 0.0)
         major = sqrt_rn(lam_hi)
         minor = sqrt_rn(lam_lo)
         # minor-axis direction = eigenvector of lam_lo: (m01, lam_lo - m00)
         angle = torch.atan2(lam_lo - m00, m01)
-        major_c = torch.clamp(major, max=cfg.r_cap)
+        major_c = minimum(major, cfg.r_cap)
         ell_radius = torch.where(proj["valid"], major_c, 0.0)
-        ratio = torch.clamp(minor / torch.clamp(major, min=1e-8), 0.05, 1.0)
+        ratio = clip(minor / maximum(major, 1e-8), 0.05, 1.0)
     elif cfg.oriented:
         vx = splats["px"] - cam_pos[0]
         vy = splats["py"] - cam_pos[1]
         vz = splats["pz"] - cam_pos[2]
-        vn = torch.clamp(sqrt_rn(vx * vx + vy * vy + vz * vz), min=1e-8)
+        vn = maximum(sqrt_rn(vx * vx + vy * vy + vz * vz), 1e-8)
         cos_view = (nx * vx + ny * vy + nz * vz) / vn
         # tip = position + radius * normal, projected with the same clip
         # algebra as the 6-offset radius (clip_tip = clip + r*(VP @ n))
@@ -184,7 +187,7 @@ def shade_planes(
         tip_x = (tc0 / stw + 1.0) * (0.5 * cfg.width)
         tip_y = (1.0 - tc1 / stw) * (0.5 * cfg.height)
         angle = torch.atan2(tip_y - proj["cy"], tip_x - proj["cx"])
-        ratio = torch.clamp(torch.abs(cos_view), 0.05, 1.0)
+        ratio = clip(torch.abs(cos_view), 0.05, 1.0)
     else:
         angle = torch.zeros_like(nx)
         ratio = torch.ones_like(nx)
@@ -202,7 +205,7 @@ def shade_planes(
         )
         # re-cap: the dilated major axis may exceed r_cap
         ell_radius = torch.where(
-            alive, torch.clamp(sqrt_rn(div(lam1d, s2)), max=cfg.r_cap), 0.0
+            alive, minimum(sqrt_rn(div(lam1d, s2)), cfg.r_cap), 0.0
         )
         ratio = torch.where(alive, sqrt_rn(lam2d / lam1d), ratio)
 
@@ -232,18 +235,18 @@ def screen_planes(
     c = shade_planes(splats, view_proj, cam_pos, cfg)
     ps, po = cfg.pos_scale, cfg.pos_offset
     i64 = lambda v: torch.round(v).to(torch.int64)
-    q = lambda v: i64(torch.clamp((v + po) * ps, 0, POS_MAX))
-    c8 = lambda v: i64(torch.clamp(v, 0.0, 1.0) * COLOR_SCALE)
+    q = lambda v: i64(clip((v + po) * ps, 0.0, POS_MAX))
+    c8 = lambda v: i64(clip(v, 0.0, 1.0) * COLOR_SCALE)
     return {
         "cx_fx": q(c["cx"]),
         "cy_fx": q(c["cy"]),
-        "r_fx": i64(torch.clamp(c["radius"] * ps, 0, POS_MAX)),
+        "r_fx": i64(clip(c["radius"] * ps, 0.0, POS_MAX)),
         "op8": c8(c["opacity"]),
         "r8": c8(c["r"]),
         "g8": c8(c["g"]),
         "b8": c8(c["b"]),
         "ang8": i64((c["angle"] + _math.pi) * ANGLE_SCALE) % 256,
-        "ratio8": i64(torch.clamp(c["ratio"], 1.0 / RATIO_SCALE, 1.0) * RATIO_SCALE),
+        "ratio8": i64(clip(c["ratio"], 1.0 / RATIO_SCALE, 1.0) * RATIO_SCALE),
         "depth": c["depth"],
     }
 

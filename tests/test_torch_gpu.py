@@ -83,3 +83,79 @@ def test_kernel_rejects_what_it_cannot_run(cuda):
     binned["pair_rank"] = binned["pair_rank"].to(torch.int64)
     with pytest.raises(ValueError, match="int32"):
         blend_tiles(binned, cfg)
+
+
+# ---- the differentiable blend: forward (K4) and backward (K5) kernels ----
+
+DIFF_PROFILES = {"isotropic": ({}, 1e-4), "oriented": (dict(oriented=True), 1e-3)}
+
+
+def _random_planes(device, cfg, n, seed=0):
+    """Random continuous record planes over (and just beyond) the viewport,
+    with some bit-equal depths, some culled records and opacities at 1."""
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import _PLANE_NAMES
+
+    rng = np.random.default_rng(seed)
+    depth = rng.uniform(1.0, 10.0, n)
+    depth[n // 2: n // 2 + 20] = depth[:20]
+    depth[-10:] = np.inf
+    opacity = rng.uniform(0.3, 1.2, n)
+    cols = [
+        rng.uniform(-10, cfg.width + 10, n), rng.uniform(-10, cfg.height + 10, n),
+        rng.uniform(0.3, 6.0, n), np.minimum(opacity, 1.0),
+        rng.uniform(0, 1, n), rng.uniform(0, 1, n), rng.uniform(0, 1, n),
+        rng.uniform(-np.pi, np.pi, n), rng.uniform(0.05, 1.0, n), depth,
+    ]
+    return [torch.tensor(c, dtype=torch.float32, device=device).requires_grad_(True)
+            for c in cols], _PLANE_NAMES
+
+
+def _blend_and_grads(fn, cfg, planes, cots):
+    outs = fn(cfg, *planes)
+    loss = sum((o * c).sum() for o, c in zip(outs, cots))
+    # the twin never reads angle and ratio for isotropic profiles
+    grads = torch.autograd.grad(loss, planes, allow_unused=True, materialize_grads=True)
+    return [o.detach() for o in outs], grads
+
+
+@pytest.mark.parametrize("tiles", sorted(TILES))
+@pytest.mark.parametrize("profile", sorted(DIFF_PROFILES))
+def test_diff_kernels_match_twin(cuda, profile, tiles):
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import (
+        blend_planes, blend_planes_plain, diff_backward, diff_forward,
+    )
+
+    prof, grad_tol = DIFF_PROFILES[profile]
+    cfg = tpt.RenderConfig(width=200, height=120, tiles_per_splat_cap=8, **prof, **TILES[tiles])
+    planes, names = _random_planes(cuda, cfg, 3000)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    shapes = [(cfg.num_tiles, cfg.tile_pixels, 3), (cfg.num_tiles, cfg.tile_pixels),
+              (cfg.num_tiles, cfg.tile_pixels)]
+    cots = [torch.rand(s, generator=g, device=cuda) - 0.5 for s in shapes]
+    f0, b0 = diff_forward.launches, diff_backward.launches
+    k_out, k_grads = _blend_and_grads(blend_planes, cfg, planes, cots)
+    assert (diff_forward.launches, diff_backward.launches) == (f0 + 1, b0 + 1)
+    p_out, p_grads = _blend_and_grads(blend_planes_plain, cfg, planes, cots)
+    torch.cuda.synchronize()
+    for k, p in zip(k_out, p_out):
+        assert float((k - p).abs().max()) <= 2e-5
+    for name, kg, pg in zip(names, k_grads, p_grads):
+        if not cfg.oriented and name in ("angle", "ratio"):
+            assert float(kg.abs().max()) == 0.0
+            continue
+        scale = float(pg.abs().max()) + 1e-12
+        assert float((kg - pg).abs().max()) / scale < grad_tol, name
+    # the backward is deterministic: a second run gives the same bits
+    _, k_grads2 = _blend_and_grads(blend_planes, cfg, planes, cots)
+    torch.cuda.synchronize()
+    for a, b in zip(k_grads, k_grads2):
+        assert torch.equal(a, b)
+
+
+def test_diff_kernels_reject_what_they_cannot_run(cuda):
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import blend_planes
+
+    cfg = tpt.RenderConfig(width=64, height=64, tile_size=12)
+    planes, _ = _random_planes(cuda, cfg, 100)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        blend_planes(cfg, *planes)

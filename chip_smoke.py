@@ -63,15 +63,18 @@ APPEARANCE = ("cr", "cg", "cb", "opacity")
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 SFU_OP_S = 132 * 16 * 1.98e9
-# Operations per (record, pixel) evaluation, isotropic Gaussian profile,
-# counted from the kernels' source: every evaluation runs the support test
-# (dx, dy, dx^2 + dy^2, compare: 6 flops) once per pass over the pairs;
-# evaluations inside the support do the rest (flops, and SFU ops: expf).
+# Operations per (record, pixel) evaluation that the function needs,
+# isotropic Gaussian profile, whatever a kernel recomputes: every
+# evaluation runs the support test once (dx, dy, dx^2 + dy^2, compare: 6
+# flops); evaluations inside the support do the rest (flops, and SFU ops:
+# expf).
 OPS = {  # kernel -> (support-test flops, flops inside, SFU ops inside)
     "tile_blend": (6, 12, 1),
     "tile_blend_diff_fwd": (6, 14, 1),
-    # two passes over the pairs; the per-record warp sums included
-    "tile_blend_diff_bwd": (12, 60, 2),
+    # one pass, reading the forward's C, A, D: alpha recompute 4,
+    # transmittance 2, w = gC.c + gD.d 7, dL/da from the prefix and the
+    # totals 8, its chain to op, r, cx, cy 14, colour and depth 8
+    "tile_blend_diff_bwd": (6, 43, 1),
 }
 
 
@@ -361,7 +364,8 @@ def phase7_training_step(dev, card: str, n: int = 200_000, size: int = 512, fit_
     t, tp, nf = cfg.num_tiles, cfg.tile_pixels, pl.shape[1]
     head = (t + 1) * 4 + n_pairs * 4 + pl.shape[0] * nf * 4  # offsets, ranks, planes
     fwd_bytes = head + t * tp * 5 * 4
-    bwd_bytes = head + n_pairs * 4 + t * tp * 5 * 4 + n_pairs * nf * 4  # + slots, cots, rows
+    # + slots, cotangents, the forward's residuals, rows
+    bwd_bytes = head + n_pairs * 4 + 2 * t * tp * 5 * 4 + n_pairs * nf * 4
     fb = bound("tile_blend_diff_fwd", fwd_bytes, evals, inside)
     bb = bound("tile_blend_diff_bwd", bwd_bytes, evals, inside)
     log(f"phase 7: kernels at the {n // 1000}k @{size}x{size} stream ({n_pairs} pairs, "

@@ -26,10 +26,10 @@
 // record i as seen through it and Q_i = prod_{j>i} (1 - a_j); gated to 0
 // where op * shape >= alpha_cap, then chained to every field term for term
 // as the TPU kernel does.  The TPU kernel writes the suffix as U_total -
-// prefix and divides by 1 - a_i: in float32 that cancellation, magnified by
-// 1 / (1 - a_i) where an opacity-1 splat's centre nearly meets a pixel
-// centre, put K5 1.2e-3 (max-relative) off its twin on a dense random
-// stream.  Here R and Q come from back-to-front recurrences with no
+// prefix and divides by 1 - a_i: in float32 that cancellation is magnified
+// by 1 / (1 - a_i), up to 1e7 (the alpha cap) where an opacity-1 splat's
+// centre nearly meets a pixel centre.  Here R and Q come from back-to-front
+// recurrences with no
 // division: a first pass stores each 32-record chunk's composite (R, Q)
 // per pixel in `scratch`, a pass over the chunks back to front turns them
 // into suffixes, and the main pass walks the chunks forward, computing T_i
@@ -44,10 +44,12 @@
 // What bounds it on the H100: arithmetic.  A pair reads nf * 4 bytes of
 // record and is evaluated against every pixel of its tile (256 for 16x16
 // tiles): some 10 FP32 operations for the support test, and inside the
-// support one expf and about 15 (forward) or 50 (backward) more.  The
-// backward evaluates every pair twice (its two passes), and pays the
-// per-record warp sums (8 or 11 fields) and two barriers per chunk of 32
-// records.
+// support one expf and about 15 (forward) or 45 (backward) more.  The
+// backward runs each pair's support test three times and its expf twice
+// (pass 1, then pass 2's forward and backward walks over a chunk), where a
+// one-pass adjoint reading the forward's residuals would run each once,
+// and pays the per-record warp sums (8 or 11 fields) and two barriers per
+// chunk of 32 records.
 //
 // Design: one CTA per tile, one thread per pixel (tile_pixels must be a
 // multiple of 32 and at most 1024).  Records are staged through shared

@@ -250,7 +250,8 @@ def blend_binned_plain(binned: Binned, cfg: RenderConfig) -> TileOutputs:
     segmented exclusive product, colour and depth folded in with
     `index_add`, and each tile's transmittance carried across chunks.
     Autograd keeps (pairs x tile_pixels) intermediates: hold it against the
-    kernels at moderate sizes.
+    kernels at moderate sizes.  It is not `compositor.render_tiles`, the
+    independent reference (see that module's docstring for why both stay).
     """
     rec_planes = binned["planes"]
     device = rec_planes.device

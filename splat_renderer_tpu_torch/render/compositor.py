@@ -6,6 +6,16 @@ differentiable render's "tiles" method.  The
 exact pipeline's quantized-word compositor is the CUDA kernel
 csrc/tile_blend.cu, whose plain twin is `ops/tile_blend.py::
 blend_tiles_plain`.
+
+`render_tiles` and the diff kernels' twin (`ops/tile_blend_diff.py::
+blend_binned_plain`) walk the pair stream alike but stay two references.
+`render_tiles` is the JAX package's "tiles" method: every profile (the
+opaque and quad coverage too), over `bin_splats` and `blend.
+splat_alpha_planes`, the carry in log space.  It shares neither binner nor
+alpha code with the kernels, so the gradient tests that lean on it would
+catch a fault in `bin_planes_diff` or in the kernels' alpha.  The twin runs
+the kernels' own op sequence on their own stream, so it isolates the
+kernels.
 """
 
 from __future__ import annotations

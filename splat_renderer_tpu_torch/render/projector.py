@@ -5,10 +5,11 @@ Counterpart of `splat_renderer_tpu/render/projector.py`: every field is
 computed for the whole (N,) batch as elementwise plane math, with the same
 op sequence as the JAX package, so the quantized words come out bit-equal
 (tests/test_torch_render.py).  Word arithmetic runs in int64 (see
-render/packing.py for why).  Every jnp.clip/minimum/maximum is written with
-`_torch_util.clip`/`minimum`/`maximum`, which split the gradient at a bound
-as jnp does (`torch.clamp` would not), so the differentiable render
-(render/diff.py) gets JAX's gradients.
+render/packing.py for why).  Every jnp.clip/minimum/maximum that a
+gradient can reach is written with `_torch_util.clip`/`minimum`/`maximum`,
+which split the gradient at a bound as jnp does (`torch.clamp` would not),
+so the differentiable render (render/diff.py) gets JAX's gradients.  The
+grid snap in `screen_planes` has no gradient and keeps `torch.clamp`.
 """
 
 from __future__ import annotations
@@ -235,18 +236,19 @@ def screen_planes(
     c = shade_planes(splats, view_proj, cam_pos, cfg)
     ps, po = cfg.pos_scale, cfg.pos_offset
     i64 = lambda v: torch.round(v).to(torch.int64)
-    q = lambda v: i64(clip((v + po) * ps, 0.0, POS_MAX))
-    c8 = lambda v: i64(clip(v, 0.0, 1.0) * COLOR_SCALE)
+    # the grid snap has no gradient: torch.clamp, one launch per clip
+    q = lambda v: i64(torch.clamp((v + po) * ps, 0, POS_MAX))
+    c8 = lambda v: i64(torch.clamp(v, 0.0, 1.0) * COLOR_SCALE)
     return {
         "cx_fx": q(c["cx"]),
         "cy_fx": q(c["cy"]),
-        "r_fx": i64(clip(c["radius"] * ps, 0.0, POS_MAX)),
+        "r_fx": i64(torch.clamp(c["radius"] * ps, 0, POS_MAX)),
         "op8": c8(c["opacity"]),
         "r8": c8(c["r"]),
         "g8": c8(c["g"]),
         "b8": c8(c["b"]),
         "ang8": i64((c["angle"] + _math.pi) * ANGLE_SCALE) % 256,
-        "ratio8": i64(clip(c["ratio"], 1.0 / RATIO_SCALE, 1.0) * RATIO_SCALE),
+        "ratio8": i64(torch.clamp(c["ratio"], 1.0 / RATIO_SCALE, 1.0) * RATIO_SCALE),
         "depth": c["depth"],
     }
 

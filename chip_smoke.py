@@ -6,7 +6,8 @@
 Run from the repository root on a machine with a CUDA device and the CUDA
 toolkit (nvcc).  It builds the hand-written kernels from the sources in the
 checkout, holds each against its plain PyTorch twin, drives the main path
-(`Engine.frame`) at the bench headline size, and checks the images.  Phases:
+(`Engine.frame`) at the bench headline size, the training path, and the
+static-scene serving and datagen paths, and checks the images.  Phases:
 
   1. device name and power limit; build or load the kernels
   2. tile-blend kernel vs its plain twin on random record streams, every
@@ -31,9 +32,26 @@ checkout, holds each against its plain PyTorch twin, drives the main path
   8. the quality fit: 10k splats at 256x256, 6 views, half the splats
      killed, 60 steps with density control; held-out PSNR in (0, 80) and
      above the degraded start + 3 dB
+  9. (inside phase 2's loop, on its streams) the depth-carrying kernel vs
+     the twin: colour and alpha <= 2e-5, the premultiplied depth <= 2e-5 of
+     the stream's largest depth; the cross-tile-prefetch kernel equal to the
+     per-tile kernel bit for bit at eps 0 and 0.01, with and without depth
+ 10. static-scene serving at full width: 1M demo-scene splats with SH
+     degree 3 written to a 3DGS .ply, read back, served by
+     `SplatEngine(blend_kernel="tile_xp")` through the HTTP viewer (raw,
+     PNG and half-size frames fetched from localhost); then CUDA-event
+     times of `SplatEngine.frame` with "tile" and "tile_xp", interleaved,
+     by stage, and the two kernels alone at that stream
+ 11. datagen: `render_gbuffer` at the 1M @1080p headline stream (and kernel
+     vs method="tiles" on a 100k @512x512 cut: the plain tile compositor
+     walks the pair stream 1024 pairs at a time), the depth kernel alone vs
+     its twin, and `render_views`, 8 views x 2M splats @1080p as uint8
+ 12. the arithmetic-rate probe: float32 and bfloat16 multiply-add chains,
+     kernel vs twin, and its entry point's rates
 
-It prints one JSON line describing the kernels (each with its time, the
-twin's time and the least time the card could take for the same work),
+It prints one JSON line describing the six kernels (each with its launches
+on its path, its time, the twin's time and the least time the card could
+take for the same work),
 then, as its last line,
 {"ok": true, "device": {...}}.  Any failed check raises, so the exit code is
 non-zero and the last line is never printed; without a CUDA device it exits
@@ -63,6 +81,11 @@ APPEARANCE = ("cr", "cg", "cb", "opacity")
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 SFU_OP_S = 132 * 16 * 1.98e9
+# bfloat16 outside the tensor cores: two values per FP32 lane (__hfma2), the
+# Hopper white paper's 133.8 TFLOP/s non-tensor BF16 peak
+BF16_FLOP_S = 2 * FP32_FLOP_S
+DEPTH_TOL = 2e-5  # premultiplied depth vs twin, relative to the stream's largest depth
+GBUFFER_DEPTH_TOL = 1e-3  # normalized depth, kernel path vs the plain tile compositor
 # Operations per (record, pixel) evaluation that the function needs,
 # isotropic Gaussian profile, whatever a kernel recomputes: every
 # evaluation runs the support test once (dx, dy, dx^2 + dy^2, compare: 6
@@ -70,6 +93,8 @@ SFU_OP_S = 132 * 16 * 1.98e9
 # expf).
 OPS = {  # kernel -> (support-test flops, flops inside, SFU ops inside)
     "tile_blend": (6, 12, 1),
+    "tile_blend_xp": (6, 12, 1),  # the same function on another schedule
+    "tile_blend_depth": (6, 14, 1),  # + depth * w, += per evaluation inside
     "tile_blend_diff_fwd": (6, 14, 1),
     # one pass, reading the forward's C, A, D: alpha recompute 4,
     # transmittance 2, w = gC.c + gD.d 7, dL/da from the prefix and the
@@ -429,6 +454,450 @@ def phase8_quality_fit(dev, card: str, qn: int = 10_000, qres: int = 256, qsteps
     return psnr0, psnr
 
 
+def words_and_bins(splats, cam, cfg, with_depth=False):
+    from splat_renderer_tpu_torch.render.binning import bin_packed_words
+    from splat_renderer_tpu_torch.render.projector import splat_screen_words
+
+    w = splat_screen_words(splats, cam["view_proj"], cam["cam_pos"], cfg)
+    return bin_packed_words(w["dk"], w["w_pos"], w["w_ro"], w["w_rgb"], cfg,
+                            with_depth=with_depth)
+
+
+def max_diff(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def depth_range(binned) -> float:
+    """The largest finite record depth of a depth-carrying stream."""
+    import torch
+
+    d = binned["rec_depth"].view(torch.float32)
+    return float(d[torch.isfinite(d)].max())
+
+
+def stream_bound(name: str, binned, cfg, with_depth: bool):
+    """(bound, pairs, evaluations, inside) of a packed-word stream: the
+    blend's bytes (offsets, ranks, the word planes once, the outputs once)
+    and its operations on this stream's data."""
+    import torch
+
+    from splat_renderer_tpu_torch.render.packing import U32_MASK, unpack_words
+
+    u32 = lambda w: w.to(torch.int64) & U32_MASK  # noqa: E731
+    cx, cy, r = unpack_words(u32(binned["rec_pos"]), u32(binned["rec_ro"]),
+                             u32(binned["rec_rgb"]), cfg)[:3]
+    cut2 = torch.where(r >= cfg.min_screen_radius, cfg.bounds_margin ** 2 * (r * r), -1.0)
+    evals, inside = support_evals(cx, cy, cut2, binned, cfg)
+    n_pairs = int(binned["offsets"][-1])
+    words, outs = (4, 5) if with_depth else (3, 4)  # planes per record; floats per pixel
+    n_bytes = ((cfg.num_tiles + 1) * 4 + n_pairs * 4 + cx.shape[0] * 4 * words
+               + cfg.num_tiles * cfg.tile_pixels * 4 * outs)
+    return bound(name, n_bytes, evals, inside), n_pairs, evals, inside
+
+
+def coverage_u8(frame, background) -> float:
+    """Share of a uint8 (H, W, 3) host frame's pixels off the background."""
+    import numpy as np
+
+    bg = np.round(np.asarray(background, np.float32) * 255.0)
+    return float((np.abs(frame.astype(np.float32) - bg).sum(-1) > 255.0 * BG_TOL).mean())
+
+
+def phase10_static_scene(dev, card: str, n: int = 1_000_000):
+    """Static-scene serving at full width: .ply with SH degree 3 -> SplatEngine
+    (tile_xp) -> the HTTP viewer; then frame and stage times, tile vs tile_xp."""
+    import os
+    import statistics
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from splat_renderer_tpu_torch import Camera, PointConfig, RenderConfig
+    from splat_renderer_tpu_torch.camera import camera_tensors
+    from splat_renderer_tpu_torch.ops.tile_blend import (
+        blend_tiles, blend_tiles_plain, reset_launches,
+    )
+    from splat_renderer_tpu_torch.render.pipeline import SplatEngine, demo_scene, model_points
+    from splat_renderer_tpu_torch.render.sh import apply_sh
+    from splat_renderer_tpu_torch.utils.image import read_png
+    from splat_renderer_tpu_torch.utils.ply import load_ply, save_ply
+    from splat_renderer_tpu_torch.viewer.serve import make_server
+
+    width, height = 1920, 1080
+    rcfg = RenderConfig(width=width, height=height, base_radius=0.008, tiles_per_splat_cap=4)
+    scene = demo_scene()
+    made = model_points(scene, scene.params(dev), torch.Generator(device=dev).manual_seed(21),
+                        n, PointConfig(), rcfg, device=dev)
+    sh_rng = np.random.default_rng(5)
+    made_sh = {c: torch.as_tensor(sh_rng.normal(scale=0.1, size=(15, n)).astype(np.float32),
+                                  device=dev) for c in ("r", "g", "b")}
+
+    # the "pre-trained scene": written as a 3DGS .ply and read back
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scene.ply")
+        save_ply(path, made, made_sh)
+        size = os.path.getsize(path)
+        t1 = time.perf_counter()
+        splats, sh = load_ply(path, with_sh=True, device=dev)
+    t2 = time.perf_counter()
+    check(splats["px"].shape == (n,) and sh["r"].shape == (15, n), "loaded scene's shapes")
+    for k in ("px", "py", "pz"):
+        check(torch.equal(splats[k], made[k]), f"ply round trip: {k}")
+    for c in ("r", "g", "b"):
+        check(torch.equal(sh[c], made_sh[c]), f"ply round trip: sh[{c}]")
+    trip = {k: float((splats[k] - made[k]).abs().max())
+            for k in ("radius", "opacity", "cr", "cg", "cb", "nx", "ny", "nz")}
+    check(max(trip.values()) <= 1e-4, f"ply round trip: {trip}")
+    log(f"phase 10: {n} splats + SH degree 3 -> .ply ({size / 2**20:.1f} MiB, written in "
+        f"{t1 - t0:.2f} s, read in {t2 - t1:.2f} s host clock): positions and SH bit-equal, "
+        f"other planes within {max(trip.values()):.3g} (<= 1e-4)")
+
+    eng_xp = SplatEngine(splats, rcfg, sh=sh, blend_kernel="tile_xp", device=dev)
+    eng_tile = SplatEngine(splats, rcfg, sh=sh, blend_kernel="tile", device=dev)
+    eng_flat = SplatEngine(splats, rcfg, blend_kernel="tile_xp", device=dev)  # no SH
+
+    def cam_at(az):
+        return camera_tensors(Camera(aspect=width / height, azimuth=az).arrays(), dev)
+
+    # ---- the main path of this slice: the viewer's frames over HTTP ----
+    server = make_server(eng_xp, port=0, profile_stages=False)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    reset_launches()
+    try:
+        def fetch(query):
+            t = time.perf_counter()
+            r = urllib.request.urlopen(f"http://127.0.0.1:{port}/frame?{query}", timeout=120)
+            body = r.read()
+            check(r.status == 200, f"/frame?{query}: status {r.status}")
+            return r, body, (time.perf_counter() - t) * 1e3
+
+        page = urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=30).read()
+        check(b"<canvas" in page, "viewer page")
+        r1, raw1, ms1 = fetch("az=0.5&el=0.5&d=3.0&raw=1")
+        seq = int(r1.headers["x-seq"])
+        r2, raw2, ms2 = fetch(f"az=2.0&el=0.5&d=3.0&raw=1&seq={seq}")
+        seq = int(r2.headers["x-seq"])
+        r3, png, ms3 = fetch(f"az=2.0&el=0.3&d=2.5&seq={seq}")
+        seq = int(r3.headers["x-seq"])
+        r4, half, ms4 = fetch(f"az=2.0&el=0.3&d=2.5&raw=1&half=1&seq={seq}")
+        served = int(r4.headers["x-seq"])
+    finally:
+        server.shutdown()
+        server.render_loop.stop()
+        server.server_close()
+    check(server.render_loop.error is None,
+          f"the viewer's render loop failed: {server.render_loop.error!r}")
+    xp_launches = blend_tiles.launches_by_kernel["tile_blend_xp"]
+    check(xp_launches >= served >= 4,
+          f"tile_blend_xp launched {xp_launches} times for {served} served frames")
+    check(len(raw1) == len(raw2) == width * height * 3, f"raw frame bytes {len(raw1)}")
+    check(len(half) == (width // 2) * (height // 2) * 3, f"half frame bytes {len(half)}")
+    check((int(r4.headers["x-w"]), int(r4.headers["x-h"])) == (width // 2, height // 2),
+          "half frame geometry")
+    check(png[:8] == b"\x89PNG\r\n\x1a\n", "PNG signature")
+    with tempfile.TemporaryDirectory() as tmp:
+        p = os.path.join(tmp, "f.png")
+        with open(p, "wb") as f:
+            f.write(png)
+        png_img = read_png(p)
+    check(png_img.shape == (height, width, 3), f"PNG frame shape {png_img.shape}")
+    f1 = np.frombuffer(raw1, np.uint8).reshape(height, width, 3)
+    f2 = np.frombuffer(raw2, np.uint8).reshape(height, width, 3)
+    cov = [coverage_u8(f, rcfg.background) for f in (f1, f2, png_img)]
+    check(min(cov) > COVERAGE_FLOOR, f"served coverage {cov}")
+    moved = float(np.abs(f1.astype(np.int16) - f2.astype(np.int16)).mean())
+    check(moved > 1.0, f"a moved camera changed the served frame by {moved} levels")
+    # the served frame is the engine's own frame for that camera
+    own = eng_xp.frame(cam_at(0.5))
+    own_u8 = torch.clamp(own * 255.0 + 0.5, 0, 255).to(torch.uint8).cpu().numpy()
+    check(np.array_equal(own_u8, f1), "served frame differs from SplatEngine.frame")
+    # SH: a splat's colour depends on the viewing direction, and the lit
+    # frame differs from the unlit one
+    lit_a = apply_sh(splats, sh, cam_at(0.5)["cam_pos"])
+    lit_b = apply_sh(splats, sh, cam_at(2.0)["cam_pos"])
+    sh_shift = float(torch.stack([(lit_a[c] - lit_b[c]).abs().mean()
+                                  for c in ("cr", "cg", "cb")]).mean())
+    check(sh_shift > 0.01, f"SH moved the colours by {sh_shift} between two azimuths")
+    unlit = float((eng_flat.frame(cam_at(0.5)) - own).abs().mean())
+    check(unlit > 1e-3, f"SH changed the frame by {unlit}")
+    log(f"phase 10: viewer served {served} frames of SplatEngine(sh degree 3, tile_xp) over "
+        f"HTTP: raw {len(raw1)} B in {ms1:.1f} / {ms2:.1f} ms, PNG {len(png)} B in {ms3:.1f} ms, "
+        f"half raw {len(half)} B in {ms4:.1f} ms (host clock, first request warms up; "
+        f"X-Render-Ms {r1.headers['x-render-ms']} / {r2.headers['x-render-ms']} / "
+        f"{r3.headers['x-render-ms']} / {r4.headers['x-render-ms']}); tile_blend_xp launches "
+        f"{xp_launches}; coverage {min(cov):.3f}..{max(cov):.3f} (> {COVERAGE_FLOOR}); moved "
+        f"camera changed the frame by {moved:.2f} levels mean; SH shifts colours by "
+        f"{sh_shift:.4f} between azimuths 0.5 and 2.0, lit vs unlit frame {unlit:.4f}; {card}")
+
+    # ---- frame and stage times, tile and tile_xp in turns ----
+    cam = cam_at(0.5)
+    frames = {"tile": [], "tile_xp": []}
+    for e in (eng_tile, eng_xp):
+        e.frame(cam)  # warm-up
+    torch.cuda.synchronize()
+    imgs = {}
+    for _ in range(5):
+        for name, e in (("tile", eng_tile), ("tile_xp", eng_xp)):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            imgs[name] = e.frame(cam)
+            e1.record()
+            torch.cuda.synchronize()
+            frames[name].append(e0.elapsed_time(e1))
+    check(torch.equal(imgs["tile"], imgs["tile_xp"]), "tile and tile_xp frames differ")
+    check(bool(torch.isfinite(imgs["tile"]).all()), "non-finite static-scene frame")
+    log(f"phase 10: SplatEngine.frame {n} splats + SH deg 3 @1920x1080 16x16 cap 4, 5 frames each in "
+        "turns, ms (CUDA events): "
+        + "; ".join(f"{k} " + " ".join(f"{t:.3f}" for t in v)
+                    + f" (median {statistics.median(v):.3f})" for k, v in frames.items())
+        + f"; frames bit-equal; {card}")
+    # stage_profile called here so that a failure in it is seen (the
+    # viewer's HUD tolerates one)
+    profiles = {}
+    for rep in range(2):
+        for name, e in (("tile", eng_tile), ("tile_xp", eng_xp)):
+            prof = e.stage_profile(cam, None, iters=5)
+            check(set(prof) == {"splats_ms", "project_ms", "bin_ms", "blend_ms", "image_ms"},
+                  f"stage_profile keys {sorted(prof)}")
+            check(all(v > 0 for v in prof.values()), f"stage_profile {prof}")
+            profiles[f"{name} run {rep + 1}"] = prof
+    log("phase 10: stage_profile (median of 5, ms, CUDA events; splats = SH lighting): "
+        + "; ".join(f"{k}: " + " ".join(f"{s[:-3]} {v:.3f}" for s, v in prof.items())
+                    + f" sum {sum(prof.values()):.3f}" for k, prof in profiles.items())
+        + f"; {card}")
+
+    # ---- the two kernels alone at this stream ----
+    binned = words_and_bins(apply_sh(splats, sh, cam["cam_pos"]), cam, rcfg)
+    k1 = blend_tiles(binned, rcfg, eps=0.0)
+    k3 = blend_tiles(binned, rcfg, eps=0.0, schedule="tile_xp")
+    plain = blend_tiles_plain(binned, rcfg, eps=0.0, pair_chunk=8192)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(k1, k3)), "static stream: tile_xp != tile")
+    err = max_diff(k3, plain)
+    check(err <= EPS_TOL, f"static stream: tile_xp vs twin {err}")
+    eps = rcfg.transmittance_eps
+    t = {"tile eps 0": [], "tile_xp eps 0": [], f"tile eps {eps}": [], f"tile_xp eps {eps}": []}
+    for order in (("tile", "tile_xp"), ("tile_xp", "tile")):  # tile, xp, xp, tile
+        for sched in order:
+            t[f"{sched} eps 0"].append(
+                elapsed_ms(lambda: blend_tiles(binned, rcfg, eps=0.0, schedule=sched), 20))
+            t[f"{sched} eps {eps}"].append(
+                elapsed_ms(lambda: blend_tiles(binned, rcfg, schedule=sched), 20))
+    plain_ms = elapsed_ms(lambda: blend_tiles_plain(binned, rcfg, eps=0.0, pair_chunk=8192), 2)
+    bnd, n_pairs, evals, inside = stream_bound("tile_blend_xp", binned, rcfg, False)
+    nonempty = int((binned["counts"] > 0).sum())
+    log(f"phase 10: kernels at the static-scene stream ({n_pairs} pairs, {nonempty} of "
+        f"{rcfg.num_tiles} tiles nonempty, {inside} of {evals} evaluations inside the support), "
+        "ms in the order tile, tile_xp, tile_xp, tile: "
+        + "; ".join(f"{k} " + " / ".join(f"{v:.3f}" for v in vs) for k, vs in t.items())
+        + f"; plain twin (eps 0) {plain_ms:.3f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}); tile_xp "
+        f"vs tile bit-equal, vs twin max-abs {err:.3g}; {card}")
+    return dict(launches=xp_launches, err=err, ms=statistics.mean(t["tile_xp eps 0"]),
+                plain_ms=plain_ms, bound=bnd)
+
+
+def phase11_datagen(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_000,
+                    n_cut: int = 100_000, n_views: int = 2_000_000):
+    """The G-buffer at the headline stream, the depth kernel vs its twin and
+    the plain tile compositor, and 8 views x 2M splats as uint8."""
+    import statistics
+
+    import torch
+
+    from splat_renderer_tpu_torch import Camera, PointConfig, RenderConfig, orbit_ring
+    from splat_renderer_tpu_torch.camera import camera_tensors
+    from splat_renderer_tpu_torch.ops.tile_blend import (
+        blend_tiles, blend_tiles_plain, reset_launches,
+    )
+    from splat_renderer_tpu_torch.render.multiview import render_views
+    from splat_renderer_tpu_torch.render.pipeline import (
+        demo_scene, model_points, render_gbuffer, render_splats,
+    )
+    from splat_renderer_tpu_torch.render.projector import splat_screen_words
+
+    scene = demo_scene()
+    pcfg = PointConfig()
+    rcfg, cam = headline_cfg, headline_cam
+    spl = model_points(scene, scene.params(dev), torch.Generator(device=dev).manual_seed(31),
+                       n, pcfg, rcfg, device=dev)
+    reset_launches()
+    render_gbuffer(spl, cam, rcfg, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    gb_ms = []
+    for _ in range(5):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        gb = render_gbuffer(spl, cam, rcfg, device=dev)
+        e1.record()
+        torch.cuda.synchronize()
+        gb_ms.append(e0.elapsed_time(e1))
+    # this path's launches: the warm-up and the 5 timed G-buffers
+    depth_launches = blend_tiles.launches_by_kernel["tile_blend_depth"]
+    check(depth_launches == 6, f"tile_blend_depth launched {depth_launches} times in 6 G-buffers")
+    h, w = rcfg.height, rcfg.width
+    check(gb["rgb"].shape == (h, w, 3) and gb["depth"].shape == (h, w)
+          and gb["alpha"].shape == (h, w), "G-buffer shapes")
+    check(all(bool(torch.isfinite(v).all()) for v in gb.values()), "non-finite G-buffer")
+    alpha, depth = gb["alpha"], gb["depth"]
+    cov = float((alpha > BG_TOL).float().mean())
+    check(cov > COVERAGE_FLOOR, f"G-buffer coverage {cov}")
+    check(float(alpha.min()) >= 0.0 and float(alpha.max()) <= 1.0 + 1e-6, "alpha out of [0, 1]")
+    check(float(depth[alpha <= 1e-6].abs().max()) == 0.0, "depth off the splats is not 0")
+    d_all = splat_screen_words(spl, cam["view_proj"], cam["cam_pos"], rcfg)["depth"]
+    d_all = d_all[torch.isfinite(d_all)]
+    lo, hi = float(d_all.min()), float(d_all.max())
+    hit = alpha > 0.5
+    check(float(depth[hit].min()) >= lo - 1e-3 and float(depth[hit].max()) <= hi + 1e-3,
+          f"hit depths outside the splats' range [{lo}, {hi}]")
+    img = render_splats(spl, cam, rcfg, device=dev)
+    check(torch.equal(img, gb["rgb"]), "G-buffer colour differs from the frame's")
+    log(f"phase 11: render_gbuffer {n} splats @{w}x{h} {rcfg.tile_w}x{rcfg.tile_h} cap "
+        f"{rcfg.tiles_per_splat_cap}: ms (CUDA events) " + " ".join(f"{t:.3f}" for t in gb_ms)
+        + f" (median {statistics.median(gb_ms):.3f}); coverage {cov:.3f}; hit depth "
+        f"{float(depth[hit].min()):.3f}..{float(depth[hit].max()):.3f} inside the splats' "
+        f"{lo:.3f}..{hi:.3f}; colour equal to render_splats'; {card}")
+
+    # kernel path vs the plain tile compositor: a 100k @512x512 cut (the
+    # compositor walks the stream 1024 pairs at a time, too slow at 1M)
+    cfg_c = RenderConfig(width=512, height=512, base_radius=0.008, tiles_per_splat_cap=4)
+    cam_c = camera_tensors(Camera(aspect=1.0).arrays(), dev)
+    spl_c = model_points(scene, scene.params(dev), torch.Generator(device=dev).manual_seed(32),
+                         n_cut, pcfg, cfg_c, device=dev)
+    g_k = render_gbuffer(spl_c, cam_c, cfg_c, method="kernel", eps=0.0, device=dev)
+    g_t = render_gbuffer(spl_c, cam_c, cfg_c, method="tiles", device=dev)
+    torch.cuda.synchronize()
+    cut = {k: float((g_k[k] - g_t[k]).abs().max()) for k in ("rgb", "alpha", "depth")}
+    check(cut["rgb"] <= EPS_TOL and cut["alpha"] <= EPS_TOL, f"G-buffer vs tiles {cut}")
+    check(cut["depth"] <= GBUFFER_DEPTH_TOL, f"G-buffer depth vs tiles {cut}")
+    log(f"phase 11: render_gbuffer kernel vs method=\"tiles\" at {n_cut} splats @512x512: max-abs rgb "
+        f"{cut['rgb']:.3g}, alpha {cut['alpha']:.3g} (<= {EPS_TOL}), depth {cut['depth']:.3g} "
+        f"(<= {GBUFFER_DEPTH_TOL})")
+
+    # ---- 8 views x 2M splats, uint8 ----
+    cfg_v = RenderConfig(width=1920, height=1080, base_radius=0.008, tiles_per_splat_cap=4)
+    spl_v = model_points(scene, scene.params(dev), torch.Generator(device=dev).manual_seed(33),
+                         n_views, pcfg, cfg_v, device=dev)
+    cams = camera_tensors(orbit_ring(8, aspect=1920 / 1080), dev)
+    render_views(spl_v, {k: v[:1] for k, v in cams.items()}, cfg_v, as_uint8=True, device=dev)
+    torch.cuda.synchronize()
+    mv_ms = []
+    for _ in range(2):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        views = render_views(spl_v, cams, cfg_v, as_uint8=True, device=dev)
+        e1.record()
+        torch.cuda.synchronize()
+        mv_ms.append(e0.elapsed_time(e1))
+    check(views.shape == (8, 1080, 1920, 3) and views.dtype == torch.uint8, "views shape")
+    bg8 = torch.round(torch.tensor(cfg_v.background, device=dev) * 255.0)
+    off = (views.float() - bg8).abs().sum(-1) > 255.0 * BG_TOL
+    cov_v = [float(x) for x in off.float().mean(dim=(1, 2))]
+    check(min(cov_v) > COVERAGE_FLOOR, f"view coverage {cov_v}")
+    check(float((views[0].float() - views[2].float()).abs().mean()) > 1.0, "views do not differ")
+    flat = render_views(spl_v, {k: v[:2] for k, v in cams.items()}, cfg_v, flat=True,
+                        as_uint8=True, device=dev)
+    check(flat.shape == (2, 1080, 1920 * 3) and torch.equal(flat.reshape(2, 1080, 1920, 3),
+                                                             views[:2]), "flat layout")
+    log(f"phase 11: render_views 8 views x {n_views} splats @1920x1080 16x16 cap 4, uint8: ms (CUDA events) "
+        + " ".join(f"{t:.3f}" for t in mv_ms)
+        + f" = {min(mv_ms) / 8:.3f}..{max(mv_ms) / 8:.3f} ms/view; coverage "
+        f"{min(cov_v):.3f}..{max(cov_v):.3f}; {card}")
+
+    # ---- the depth kernel alone at the headline stream ----
+    binned = words_and_bins(spl, cam, rcfg, with_depth=True)
+    k = blend_tiles(binned, rcfg, eps=0.0, with_depth=True)
+    plain = blend_tiles_plain(binned, rcfg, eps=0.0, pair_chunk=8192, with_depth=True)
+    torch.cuda.synchronize()
+    d_hi = depth_range(binned)
+    err_ca, err_d = max_diff(k[:2], plain[:2]), float((k[2] - plain[2]).abs().max())
+    check(err_ca <= EPS_TOL, f"1M stream: depth kernel colour/alpha vs twin {err_ca}")
+    check(err_d <= DEPTH_TOL * d_hi, f"1M stream: depth vs twin {err_d} (range {d_hi})")
+    k_ms = [elapsed_ms(lambda: blend_tiles(binned, rcfg, eps=0.0, with_depth=True), 20)]
+    k1_ms = elapsed_ms(lambda: blend_tiles(binned, rcfg, eps=0.0), 20)
+    k_ms.append(elapsed_ms(lambda: blend_tiles(binned, rcfg, eps=0.0, with_depth=True), 20))
+    e_ms = elapsed_ms(lambda: blend_tiles(binned, rcfg, with_depth=True), 20)
+    plain_ms = elapsed_ms(
+        lambda: blend_tiles_plain(binned, rcfg, eps=0.0, pair_chunk=8192, with_depth=True), 2)
+    bnd, n_pairs, evals, inside = stream_bound("tile_blend_depth", binned, rcfg, True)
+    log(f"phase 11: tile_blend_depth at the {n}-splat @1080p stream ({n_pairs} pairs): kernel "
+        f"{k_ms[0]:.3f} / {k_ms[1]:.3f} ms at eps 0 (without depth, between them: {k1_ms:.3f}), "
+        f"{e_ms:.3f} ms at eps {rcfg.transmittance_eps}; plain twin {plain_ms:.3f} ms; bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]}); max-abs colour/alpha {err_ca:.3g} (<= {EPS_TOL}), depth "
+        f"{err_d:.3g} (<= {DEPTH_TOL} x {d_hi:.3f}); launches by the 6 render_gbuffer calls "
+        f"{depth_launches}; {card}")
+    return dict(launches=depth_launches, err=max(err_ca, err_d / d_hi),
+                ms=statistics.mean(k_ms), plain_ms=plain_ms, bound=bnd)
+
+
+def phase12_rate_probe(dev, card: str):
+    """K6: the probe's kernels vs their twin, then its entry point."""
+    import torch
+
+    from splat_renderer_tpu_torch.ops import probe_rate as pr
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand(pr.PANEL, generator=g, device=dev)
+    errs = {}
+    for dtype, tol in (("f32", 0.0), ("bf16", 2.0 ** -6)):
+        # float32: mul by 0.5 is exact, so mul-then-add rounds once like the
+        # fused chain and the results are equal; bfloat16: held to one ulp
+        # at the chain's fixed point 2.0
+        errs[dtype] = 0.0
+        for repeats in (1, 5, pr.REPEATS):
+            got = pr.probe_rate(x, dtype, repeats=repeats, steps=4)
+            want = pr.probe_rate_plain(x, dtype, repeats=repeats, steps=1)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            check(e <= tol, f"probe {dtype} repeats {repeats}: kernel vs twin {e} (> {tol})")
+            check(bool(torch.isfinite(got).all()), f"probe {dtype}: non-finite")
+            errs[dtype] = max(errs[dtype], e)
+    # the probe's own entry point: these launches are the ones reported
+    pr.probe_rate.launches = 0
+    rates = pr.measure(dev)
+    launches = pr.probe_rate.launches
+    check(launches >= 2, f"probe_rate launched {launches} times")
+    fmas = pr.fma_count(x.numel())
+    out = {}
+    for dtype, peak in (("f32", FP32_FLOP_S), ("bf16", BF16_FLOP_S)):
+        work = torch.float32 if dtype == "f32" else torch.bfloat16
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        pr.probe_rate_plain(x, dtype)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1)
+        # one PyTorch call computes one round of the chain: torch.addcmul
+        acc, half, one = x.to(work), torch.full_like(x, 0.5, dtype=work), \
+            torch.ones_like(x, dtype=work)
+        e0.record()
+        for _ in range(pr.REPEATS * pr.STEPS):
+            torch.addcmul(one, acc, half, out=acc)
+        e1.record()
+        torch.cuda.synchronize()
+        lib_ms = e0.elapsed_time(e1)
+        t_bytes = 2 * x.numel() * 4 / HBM_BYTES_S
+        t_ops = 2 * fmas / peak
+        bnd = (t_bytes * 1e3, "bytes") if t_bytes > t_ops else (t_ops * 1e3, "operations")
+        out[dtype] = dict(ms=rates[dtype]["ms"], plain_ms=plain_ms, lib_ms=lib_ms, bound=bnd,
+                          err=errs[dtype])
+        log(f"phase 12: probe_rate {dtype}: {pr.REPEATS} x {pr.STEPS} rounds on "
+            f"{pr.PANEL[0]}x{pr.PANEL[1]} = {fmas} multiply-adds in {rates[dtype]['ms']:.4f} ms "
+            f"({rates[dtype]['tfma_s']:.3f} Tfma/s; bound {bnd[0]:.4f} ms, {bnd[1]}, peak "
+            f"{peak / 2e12:.1f} Tfma/s); plain twin {plain_ms:.1f} ms; torch.addcmul loop "
+            f"{lib_ms:.1f} ms; kernel vs twin max-abs {errs[dtype]:.3g} (<= "
+            f"{0.0 if dtype == 'f32' else 2.0 ** -6}); {card}")
+    log(f"phase 12: bf16 / f32 rate {rates['bf16']['tfma_s'] / rates['f32']['tfma_s']:.3f}; "
+        f"launches by the entry point {launches}; {card}")
+    out["launches"] = launches
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -440,7 +909,9 @@ def main() -> None:
     from splat_renderer_tpu_torch.camera import camera_tensors
     from splat_renderer_tpu_torch.convert import splats_from_numpy
     from splat_renderer_tpu_torch.ops import build
-    from splat_renderer_tpu_torch.ops.tile_blend import blend_tiles, blend_tiles_plain
+    from splat_renderer_tpu_torch.ops.tile_blend import (
+        blend_tiles, blend_tiles_plain, reset_launches,
+    )
     from splat_renderer_tpu_torch.points import point_count
     from splat_renderer_tpu_torch.render.binning import bin_packed_words
     from splat_renderer_tpu_torch.render.compositor import tiles_to_image
@@ -461,7 +932,7 @@ def main() -> None:
     log(smi)
     card = smi  # name and power limit, beside every time
     t0 = time.perf_counter()
-    sources = ("tile_blend", "tile_blend_diff")
+    sources = ("tile_blend", "tile_blend_diff", "probe_rate")
     build.build_all(sources)  # one nvcc per source, in parallel
     for name in sources:
         build.load_library(name)
@@ -470,14 +941,8 @@ def main() -> None:
         f"{time.perf_counter() - t0:.2f} s (nvcc "
         + ", ".join(f"{k} {build.build_seconds[k]:.2f} s" for k in sources) + ")")
 
-    def words_and_bins(splats, cam, cfg):
-        w = splat_screen_words(splats, cam["view_proj"], cam["cam_pos"], cfg)
-        return bin_packed_words(w["dk"], w["w_pos"], w["w_ro"], w["w_rgb"], cfg)
-
-    def max_diff(a, b):
-        return max(float((x - y).abs().max()) for x, y in zip(a, b))
-
     max_err = 0.0
+    depth_err = xp_err = 0.0  # phase 9: worst kernel-vs-twin error by kernel
 
     # ---- phase 2: kernel vs plain twin on random record streams ----
     rng = np.random.default_rng(0)
@@ -504,9 +969,12 @@ def main() -> None:
         cam = camera_tensors(spt.Camera(aspect=960 / 540).arrays(), dev)
         for name, prof in profiles.items():
             cfg = cfg0.replace(**prof)
-            binned = words_and_bins(rand_splats, cam, cfg)
+            # the depth plane rides along for phase 9; the stream is the same
+            binned = words_and_bins(rand_splats, cam, cfg, with_depth=True)
             exact = blend_tiles(binned, cfg, eps=0.0)
-            plain = blend_tiles_plain(binned, cfg, eps=0.0)
+            # the twin with depth: its colour and alpha are those without
+            plain_d = blend_tiles_plain(binned, cfg, eps=0.0, with_depth=True)
+            plain = plain_d[:2]
             early = blend_tiles(binned, cfg, eps=0.01)
             sync()
             d0, de = max_diff(exact, plain), max_diff(early, exact)
@@ -516,6 +984,30 @@ def main() -> None:
                 f"(<= {EPS_TOL}), eps 0.01 vs 0 {de:.3g} (<= {EARLY_EXIT_TOL})")
             check(d0 <= EPS_TOL, f"{name}: kernel vs twin {d0}")
             check(de <= EARLY_EXIT_TOL, f"{name}: early exit {de}")
+
+            # ---- phase 9: the depth kernel vs twin; tile_xp vs tile ----
+            exact_d = blend_tiles(binned, cfg, eps=0.0, with_depth=True)
+            early_d = blend_tiles(binned, cfg, eps=0.01, with_depth=True)
+            sync()
+            d_hi = depth_range(binned)
+            dca = max_diff(exact_d[:2], plain)
+            dd = float((exact_d[2] - plain_d[2]).abs().max())
+            check(dca <= EPS_TOL, f"{name}: depth kernel colour/alpha vs twin {dca}")
+            check(dd <= DEPTH_TOL * d_hi, f"{name}: depth vs twin {dd} (largest depth {d_hi})")
+            depth_err = max(depth_err, dca, dd / d_hi)
+            for eps, want, want_d in ((0.0, exact, exact_d), (0.01, early, early_d)):
+                got = blend_tiles(binned, cfg, eps=eps, schedule="tile_xp")
+                got_d = blend_tiles(binned, cfg, eps=eps, schedule="tile_xp", with_depth=True)
+                sync()
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"{name}: tile_xp != tile at eps {eps}")
+                check(all(torch.equal(a, b) for a, b in zip(got_d, want_d)),
+                      f"{name}: tile_xp != tile with depth at eps {eps}")
+            xp_err = max(xp_err, d0)  # bit-equal to the kernel phase 2 just held
+            log(f"phase 9: {name:9s} {cfg.tile_w}x{cfg.tile_h}: depth kernel vs twin max-abs "
+                f"colour/alpha {dca:.3g} (<= {EPS_TOL}), premultiplied depth {dd:.3g} "
+                f"(<= {DEPTH_TOL} x largest depth {d_hi:.3f}); tile_xp equal to tile bit for "
+                f"bit at eps 0 and 0.01, with and without depth")
 
     # ---- phase 3: the main path, 1M splats at 1080p ----
     scene = demo_scene()
@@ -546,9 +1038,10 @@ def main() -> None:
             shares.append(share)
         return frame_ms, shares
 
-    blend_tiles.launches = 0
+    reset_launches()
     frame_ms, shares = run_frames(eng, 5, 0.0, 0)
-    main_launches = blend_tiles.launches
+    main_launches = blend_tiles.launches_by_kernel["tile_blend"]
+    check(main_launches == blend_tiles.launches, "Engine frames launched another kernel")
     check(main_launches >= 5, f"tile_blend launched {main_launches} times in 5 frames")
     log(f"phase 3: Engine 1M @1920x1080 32x16 cap 4, 5 frames: tile_blend launches "
         f"{main_launches}; coverage {min(shares):.3f}..{max(shares):.3f} "
@@ -662,27 +1155,52 @@ def main() -> None:
     # ---- phase 8: the quality fit ----
     phase8_quality_fit(dev, card)
 
+    # ---- phase 10: static-scene serving ----
+    p10 = phase10_static_scene(dev, card)
+
+    # ---- phase 11: datagen ----
+    p11 = phase11_datagen(dev, card, rcfg, cam)
+
+    # ---- phase 12: the rate probe ----
+    p12 = phase12_rate_probe(dev, card)
+
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "splat_renderer_tpu"
                     or m.startswith("splat_renderer_tpu."))
     check(not leaked, f"JAX modules imported: {leaked}")
 
-    def entry(name, source, replaces, launches, err, ms, plain, bnd):
+    def entry(name, source, replaces, launches, err, ms, plain, bnd, library=None, **more):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library, **more}
 
+    blend_src = "splat_renderer_tpu_torch/csrc/tile_blend.cu"
     diff_src = "splat_renderer_tpu_torch/csrc/tile_blend_diff.cu"
+    jax_blend = "splat_renderer_tpu/ops/tile_blend.py"
     k4_ms, k4_plain, k4_bound, k4_main_err = p7["fwd"]
     k5_ms, k5_plain, k5_bound, k5_main_err = p7["bwd"]
+    f32, bf16 = p12["f32"], p12["bf16"]
     print(json.dumps({"kernels": [
-        entry("tile_blend", "splat_renderer_tpu_torch/csrc/tile_blend.cu",
-              "splat_renderer_tpu/ops/tile_blend.py:337", main_launches, max_err,
-              exact_ms, plain_exact_ms, k1_bound),
+        # one kernel is the port of both TPU schedules that compute its image
+        entry("tile_blend", blend_src, f"{jax_blend}:337, {jax_blend}:570", main_launches,
+              max_err, exact_ms, plain_exact_ms, k1_bound),
+        # the same two TPU kernels' with_depth form (body at :96-113, :271-278)
+        entry("tile_blend_depth", blend_src, f"{jax_blend}:337, {jax_blend}:570",
+              p11["launches"], max(depth_err, p11["err"]), p11["ms"], p11["plain_ms"],
+              p11["bound"]),
+        entry("tile_blend_xp", blend_src, f"{jax_blend}:422", p10["launches"],
+              max(xp_err, p10["err"]), p10["ms"], p10["plain_ms"], p10["bound"]),
         entry("tile_blend_diff_fwd", diff_src, "splat_renderer_tpu/ops/tile_blend_diff.py:136",
               p7["launches"][0], max(k4_err, k4_main_err), k4_ms, k4_plain, k4_bound),
         entry("tile_blend_diff_bwd", diff_src, "splat_renderer_tpu/ops/tile_blend_diff.py:199",
               p7["launches"][1], max(k5_err, k5_main_err), k5_ms, k5_plain, k5_bound),
+        # the float32 chain in the common keys, the bfloat16 chain beside it
+        entry("probe_rate", "splat_renderer_tpu_torch/csrc/probe_rate.cu",
+              "benchmarks/probe_bf16.py:24", p12["launches"], f32["err"], f32["ms"],
+              f32["plain_ms"], f32["bound"], library=f32["lib_ms"],
+              bf16_ms=bf16["ms"], bf16_plain_ms=bf16["plain_ms"],
+              bf16_bound_ms=bf16["bound"][0], bf16_library_ms=bf16["lib_ms"],
+              bf16_max_abs_err=bf16["err"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

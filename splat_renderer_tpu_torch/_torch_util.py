@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -55,6 +56,14 @@ def minimum(t: torch.Tensor, c: float) -> torch.Tensor:
 def clip(t: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """`jnp.clip(t, lo, hi)`, with jnp's gradient at the bounds."""
     return minimum(maximum(t, lo), hi)
+
+
+def to_numpy(a) -> np.ndarray:
+    """A tensor on any device, or anything array-like, as a numpy array on
+    the host (dtype kept)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 def same_device(t: torch.Tensor, device) -> bool:

@@ -1,8 +1,8 @@
 """Orbit camera and projection math (host-side numpy).
 
 Counterpart of `splat_renderer_tpu/camera.py`: `look_at`, `perspective` and
-the orbit `Camera` are the same numpy code, so both packages see bit-equal
-matrices for equal parameters.  `camera_tensors` moves the frame uniform
+the orbit `Camera`, `OrbitCameraController` and `orbit_ring` are the same
+numpy code, so both packages see bit-equal matrices for equal parameters.  `camera_tensors` moves the frame uniform
 (`Camera.arrays()`) onto a device for the render functions, and
 `orbit_camera_arrays` builds it from pose tensors under autograd.
 """
@@ -71,6 +71,30 @@ class Camera:
     MIN_DISTANCE = 0.5
     MAX_DISTANCE = 20.0
 
+    def set_aspect(self, aspect: float) -> None:
+        self.aspect = float(aspect)
+
+    def rotate(self, d_azimuth: float, d_elevation: float) -> None:
+        self.azimuth += d_azimuth
+        self.elevation = float(
+            np.clip(self.elevation + d_elevation, -self.MAX_ELEVATION, self.MAX_ELEVATION)
+        )
+
+    def zoom(self, d_distance: float) -> None:
+        self.distance = float(
+            np.clip(self.distance + d_distance, self.MIN_DISTANCE, self.MAX_DISTANCE)
+        )
+
+    def pan(self, dx: float, dy: float) -> None:
+        """Translate the orbit target in the camera plane."""
+        forward = self.target - self.position()
+        forward = forward / np.linalg.norm(forward)
+        right = np.cross(forward, np.array([0.0, 1.0, 0.0], np.float32))
+        right = right / np.linalg.norm(right)
+        up = np.cross(right, forward)
+        up = up / np.linalg.norm(up)
+        self.target = (self.target + right * dx + up * dy).astype(np.float32)
+
     def position(self) -> np.ndarray:
         """Eye position from the spherical orbit parameters."""
         ce = math.cos(self.elevation)
@@ -97,6 +121,42 @@ class Camera:
             "cam_pos": self.position(),
             "time": np.float32(time),
         }
+
+
+class OrbitCameraController:
+    """Input-delta -> camera-parameter mapping.  Event-source-agnostic: feed
+    it mouse deltas from any front end (the viewer page uses the same
+    speeds)."""
+
+    ROTATE_SPEED = 0.005
+    PAN_SPEED = 0.002
+    ZOOM_SPEED = 0.001
+
+    def __init__(self, camera: Camera):
+        self.camera = camera
+
+    def drag_rotate(self, dx_px: float, dy_px: float) -> None:
+        self.camera.rotate(-dx_px * self.ROTATE_SPEED, dy_px * self.ROTATE_SPEED)
+
+    def drag_pan(self, dx_px: float, dy_px: float) -> None:
+        self.camera.pan(-dx_px * self.PAN_SPEED, dy_px * self.PAN_SPEED)
+
+    def wheel_zoom(self, delta: float) -> None:
+        self.camera.zoom(delta * self.ZOOM_SPEED * self.camera.distance)
+
+
+def orbit_ring(
+    n_views: int, distance: float = 3.0, elevation: float = 0.5, aspect: float = 1.0
+) -> Dict[str, np.ndarray]:
+    """Camera arrays for n views on an orbit ring, stacked on a leading view
+    axis (numpy; `camera_tensors` moves them to a device): the multi-view
+    datagen front end, ready for `render.multiview.render_views`."""
+    cams = [
+        Camera(azimuth=2 * math.pi * i / n_views, elevation=elevation,
+               distance=distance, aspect=aspect).arrays(0.0)
+        for i in range(n_views)
+    ]
+    return {k: np.stack([c[k] for c in cams]) for k in ("view_proj", "cam_pos", "time")}
 
 
 def camera_tensors(arrays: Dict[str, np.ndarray], device) -> CameraArrays:

@@ -16,15 +16,19 @@ from .compositor import render_tiles, tiles_to_image, tiles_to_plane
 from .diff import render_diff, render_diff_gbuffer, splat_screen_records_diff
 from .oracle import pixel_grid, render_oracle
 from .packing import depth_bits, unpack_words
+from .multiview import render_views, render_views_gbuffer
 from .pipeline import (
     Engine,
+    SplatEngine,
     animate_demo,
     demo_scene,
     model_points,
     render_frame,
+    render_gbuffer,
     render_splats,
     surface_splats,
 )
+from .sequence import render_sequence
 from .sh import apply_sh, sh_basis_planes, sh_degree
 from .projector import (
     project_planes,
@@ -36,6 +40,7 @@ from .projector import (
 
 __all__ = [
     "Engine",
+    "SplatEngine",
     "animate_demo",
     "apply_sh",
     "bin_packed_words",
@@ -54,9 +59,13 @@ __all__ = [
     "render_diff",
     "render_diff_gbuffer",
     "render_frame",
+    "render_gbuffer",
     "render_oracle",
+    "render_sequence",
     "render_splats",
     "render_tiles",
+    "render_views",
+    "render_views_gbuffer",
     "screen_planes",
     "segmented_exclusive_product",
     "sh_basis_planes",

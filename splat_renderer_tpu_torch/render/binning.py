@@ -238,21 +238,25 @@ def bin_packed_words(
       rec_pos, rec_ro, rec_rgb (N,) int32: the records' words in canonical
           order (bit patterns of the u32 words), indexed by rank
       order (N,) int64: input index of each rank
+      rec_depth (N,) int32, only with_depth (the G-buffer stream): the bit
+          pattern of each record's float depth, `dk & 0x7FFFFFFF`, the
+          inverse of `packing.depth_bits` for the positive depths
+          projection emits (culled records read +inf and have no pairs).
+          Records stay in canonical order and pairs carry ranks, so depth
+          is one more plane indexed by rank: no sort payload, as the TPU
+          package's pair stream needs.
 
     Only the exact profile is implemented: the JAX package's fast_math and
-    depth_key_order orderings, compact_to (band compaction), class_caps
-    (class-partitioned expansion) and with_depth (G-buffer stream) raise
-    NotImplementedError.
+    depth_key_order orderings, compact_to (band compaction) and class_caps
+    (class-partitioned expansion) raise NotImplementedError.
     """
     if cfg.fast_math or cfg.depth_key_order:
         raise NotImplementedError(
             "fast_math / depth_key_order pair orderings are not ported; "
             "the PyTorch binner implements the exact profile only"
         )
-    if compact_to is not None or class_caps is not None or with_depth:
-        raise NotImplementedError(
-            "compact_to, class_caps and with_depth are not ported"
-        )
+    if compact_to is not None or class_caps is not None:
+        raise NotImplementedError("compact_to and class_caps are not ported")
     ps, po = cfg.pos_scale, cfg.pos_offset
     inv_ps = 1.0 / ps
 
@@ -271,7 +275,7 @@ def bin_packed_words(
     else:
         ang = ratio = None
     pairs = _pair_stage(cx, cy, r, dk_s < _INF_KEY, cfg, ang=ang, ratio=ratio)
-    return {
+    out = {
         "offsets": pairs["offsets"].to(torch.int32),
         "counts": pairs["counts"].to(torch.int32),
         "pair_rank": pairs["pair_rank"].to(torch.int32),
@@ -281,6 +285,9 @@ def bin_packed_words(
         "rec_rgb": as_int32_bits(w_rgb),
         "order": order,
     }
+    if with_depth:
+        out["rec_depth"] = (dk_s & 0x7FFFFFFF).to(torch.int32)
+    return out
 
 
 def bin_splats(splat_data_sorted: torch.Tensor, cfg: RenderConfig) -> Binned:

@@ -1,4 +1,4 @@
-"""The tile-blend CUDA kernel on the card, against its plain PyTorch twin.
+"""The port's CUDA kernels on the card, against their plain PyTorch twins.
 
 Marked `gpu`: every test skips where torch sees no CUDA device.  The file
 imports no jax, so it also runs on a machine without JAX:
@@ -36,7 +36,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _binned(device, cfg, seed=0, n=4000):
+def _binned(device, cfg, seed=0, n=4000, with_depth=False):
     rng = np.random.default_rng(seed)
     pos = rng.uniform(-1, 1, (n, 3))
     nrm = rng.normal(size=(n, 3))
@@ -51,7 +51,90 @@ def _binned(device, cfg, seed=0, n=4000):
     spl = splats_from_numpy(planes, device)
     cam = camera_tensors(tpt.Camera(aspect=cfg.width / cfg.height).arrays(), device)
     w = splat_screen_words(spl, cam["view_proj"], cam["cam_pos"], cfg)
-    return bin_packed_words(w["dk"], w["w_pos"], w["w_ro"], w["w_rgb"], cfg)
+    return bin_packed_words(w["dk"], w["w_pos"], w["w_ro"], w["w_rgb"], cfg,
+                            with_depth=with_depth)
+
+
+@pytest.mark.parametrize("tiles", sorted(TILES))
+@pytest.mark.parametrize("profile", sorted(PROFILES))
+def test_depth_kernel_matches_twin(cuda, profile, tiles):
+    """The depth-carrying kernel: colour and alpha within 2e-5 of the twin,
+    the premultiplied depth within 2e-5 of the stream's depth range."""
+    cfg = tpt.RenderConfig(width=200, height=120, tiles_per_splat_cap=8,
+                           **PROFILES[profile], **TILES[tiles])
+    binned = _binned(cuda, cfg, with_depth=True)
+    before = blend_tiles.launches_by_kernel["tile_blend_depth"]
+    kc, ka, kd = blend_tiles(binned, cfg, eps=0.0, with_depth=True)
+    assert blend_tiles.launches_by_kernel["tile_blend_depth"] == before + 1
+    pc, pa, pd = blend_tiles_plain(binned, cfg, eps=0.0, with_depth=True)
+    torch.cuda.synchronize()
+    d = binned["rec_depth"].view(torch.float32)
+    d_range = float(d[torch.isfinite(d)].max())
+    assert float((kc - pc).abs().max()) <= 2e-5
+    assert float((ka - pa).abs().max()) <= 2e-5
+    assert float((kd - pd).abs().max()) <= 2e-5 * d_range
+    assert float(kd.max()) > 0
+    # the depth instantiation leaves colour and alpha as they were
+    c0, a0 = blend_tiles(binned, cfg, eps=0.0)
+    assert torch.equal(c0, kc) and torch.equal(a0, ka)
+
+
+@pytest.mark.parametrize("tiles", sorted(TILES))
+@pytest.mark.parametrize("profile", ["isotropic", "oriented", "quad"])
+def test_prefetch_kernel_equals_per_tile_kernel(cuda, profile, tiles):
+    """The persistent cross-tile-prefetch schedule gives the per-tile
+    kernel's outputs bit for bit, at eps 0 and 0.01, with and without depth;
+    a tile with several chunks and empty tiles are both on the stream."""
+    cfg = tpt.RenderConfig(width=200, height=120, tiles_per_splat_cap=8,
+                           **PROFILES[profile], **TILES[tiles])
+    binned = _binned(cuda, cfg, n=40000, with_depth=True)
+    assert int(binned["counts"].max()) > cfg.tile_pixels  # a run of several chunks
+    for eps in (0.0, 0.01):
+        for with_depth in (False, True):
+            name = "tile_blend_xp" + ("_depth" if with_depth else "")
+            before = blend_tiles.launches_by_kernel[name]
+            a = blend_tiles(binned, cfg, eps=eps, with_depth=with_depth)
+            b = blend_tiles(binned, cfg, eps=eps, schedule="tile_xp", with_depth=with_depth)
+            assert blend_tiles.launches_by_kernel[name] == before + 1
+            torch.cuda.synchronize()
+            for x, y in zip(a, b):
+                assert torch.equal(x, y), (eps, with_depth)
+
+
+def test_prefetch_kernel_skips_empty_tiles(cuda):
+    """Few splats on a large viewport: most tiles are empty and come out as
+    zeros from the persistent kernel, as from the per-tile kernel."""
+    cfg = tpt.RenderConfig(width=640, height=360, tiles_per_splat_cap=8)
+    binned = _binned(cuda, cfg, n=40, with_depth=True)
+    assert int((binned["counts"] == 0).sum()) > cfg.num_tiles // 2
+    a = blend_tiles(binned, cfg, eps=0.0, with_depth=True)
+    b = blend_tiles(binned, cfg, eps=0.0, schedule="tile_xp", with_depth=True)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rate_probe_matches_twin(cuda, dtype):
+    """The probe's chain against the mul-then-add loop.  Multiplying by 0.5
+    is exact, so each round rounds once in both: float32 must be equal bit
+    for bit; bfloat16 is held to one bfloat16 ulp at the chain's fixed point
+    2.0 (2**-6), in case PyTorch's bfloat16 add rounds otherwise."""
+    from splat_renderer_tpu_torch.ops.probe_rate import PANEL, probe_rate, probe_rate_plain
+
+    x = torch.rand(PANEL, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    for repeats in (0, 1, 5, 256):
+        before = probe_rate.launches
+        got = probe_rate(x, dtype, repeats=repeats, steps=3)
+        assert probe_rate.launches == before + 1
+        want = probe_rate_plain(x, dtype, repeats=repeats, steps=1)
+        torch.cuda.synchronize()
+        if dtype == "f32":
+            assert torch.equal(got, want), repeats
+        else:
+            assert float((got - want).abs().max()) <= 2.0 ** -6, repeats
+    with pytest.raises(ValueError, match="dtype"):
+        probe_rate(x, "fp8")
 
 
 @pytest.mark.parametrize("tiles", sorted(TILES))

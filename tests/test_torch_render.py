@@ -172,7 +172,8 @@ def test_unsupported_binning_options_raise():
     z = torch.zeros(4, dtype=torch.int64)
     for cfg, kw in ((tc.replace(fast_math=True), {}),
                     (tc.replace(depth_key_order=True), {}),
-                    (tc, dict(compact_to=2)), (tc, dict(class_caps=(1, 1))),
-                    (tc, dict(with_depth=True))):
+                    (tc, dict(compact_to=2)), (tc, dict(class_caps=(1, 1)))):
         with pytest.raises(NotImplementedError):
             bin_packed_words(z, z, z, z, cfg, **kw)
+    # the G-buffer stream is ported: it returns the depth plane
+    assert "rec_depth" in bin_packed_words(z, z, z, z, tc, with_depth=True)

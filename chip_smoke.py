@@ -9,7 +9,9 @@ checkout, holds each against its plain PyTorch twin, drives the main path
 (`Engine.frame`) at the bench headline size, the training path, and the
 static-scene serving and datagen paths, and checks the images.  Phases:
 
-  1. device name and power limit; build or load the kernels
+  1. device name and power limit; build or load the kernels; registers,
+     shared memory and resident CTAs per SM (the occupancy query) of the
+     instantiations timed below, and the persistent schedule's grid
   2. tile-blend kernel vs its plain twin on random record streams, every
      profile, 16x16 and 32x16 tiles: max-abs <= 2e-5 at eps = 0, and
      eps = 0.01 within 0.0101 of eps = 0
@@ -28,7 +30,8 @@ static-scene serving and datagen paths, and checks the images.  Phases:
      512x512 (cap 4), one MSE value-and-grad step over colour and opacity
      (CUDA-event forward/backward/step times), then `fit_splats`, 5 Adam
      steps over 8 fields, whose loss must fall; K4/K5 launch counts; the
-     kernels alone at that stream vs the twin
+     kernels alone at that stream vs the twin (K4 with and without the
+     residuals it leaves for K5; two K5 runs bit-equal)
   8. the quality fit: 10k splats at 256x256, 6 views, half the splats
      killed, 60 steps with density control; held-out PSNR in (0, 80) and
      above the degraded start + 3 dB
@@ -48,6 +51,10 @@ static-scene serving and datagen paths, and checks the images.  Phases:
      its twin, and `render_views`, 8 views x 2M splats @1080p as uint8
  12. the arithmetic-rate probe: float32 and bfloat16 multiply-add chains,
      kernel vs twin, and its entry point's rates
+
+Beside each blend kernel's time at its stream it prints the share of the
+(record, warp) pairs that the kernels' warp-level culling removes there
+(computed with the culling test's plain mirror).
 
 It prints one JSON line describing the six kernels (each with its launches
 on its path, its time, the twin's time and the least time the card could
@@ -148,6 +155,128 @@ def support_evals(cx, cy, cut2, binned, cfg, chunk: int = 8192):
     return n_pairs * tp, inside
 
 
+def cull_share(cx, cy, cut2, rr, binned, cfg, chunk: int = 32768):
+    """Share of a tile-sorted pair stream's (record, warp) pairs that the
+    kernels' warp-level culling removes: its plain mirror, on the device."""
+    import torch
+
+    from splat_renderer_tpu_torch.ops.tile_blend import cull_live_plain, warp_rects
+
+    n_pairs = int(binned["offsets"][-1])
+    rect = warp_rects(cfg).to(cx.device)
+    live = 0
+    for lo in range(0, n_pairs, chunk):
+        tiles = binned["pair_tile"][lo:lo + chunk].long()
+        ranks = binned["pair_rank"][lo:lo + chunk].long()
+        ox = ((tiles % cfg.tiles_x).float() * cfg.tile_w)[:, None]
+        oy = ((tiles // cfg.tiles_x).float() * cfg.tile_h)[:, None]
+        col = lambda v: v[ranks][:, None]  # noqa: E731
+        live += int(cull_live_plain(
+            col(cx), col(cy), col(cut2), col(rr), ox + rect[None, :, 0], ox + rect[None, :, 1],
+            oy + rect[None, :, 2], oy + rect[None, :, 3], cfg.oriented,
+            cfg.opaque and cfg.quad).sum())
+    return 1.0 - live / max(n_pairs * rect.shape[0], 1)
+
+
+def packed_cull_share(binned, cfg) -> float:
+    """`cull_share` of a packed-word stream."""
+    import torch
+
+    from splat_renderer_tpu_torch.ops.tile_blend import staged_cut2
+    from splat_renderer_tpu_torch.render.packing import U32_MASK, unpack_words
+
+    u32 = lambda w: w.to(torch.int64) & U32_MASK  # noqa: E731
+    cx, cy, r, op, _, _, _, _, ratio = unpack_words(
+        u32(binned["rec_pos"]), u32(binned["rec_ro"]), u32(binned["rec_rgb"]), cfg)
+    cut2, rr = staged_cut2(r, op, ratio, cfg)
+    return cull_share(cx, cy, cut2, rr, binned, cfg)
+
+
+def tile_load(binned) -> str:
+    """How a stream's records spread over its tiles: the kernels' time is
+    the walk of the heaviest tile, not the mean one."""
+    import torch
+
+    counts = binned["counts"]
+    ne = counts[counts > 0].float()
+    return (f"{ne.numel()} of {counts.numel()} tiles nonempty, records per nonempty tile mean "
+            f"{float(ne.mean()):.0f}, p99 {float(torch.quantile(ne, 0.99)):.0f}, heaviest "
+            f"{int(ne.max())}")
+
+
+def heaviest_tile(binned, cfg) -> str:
+    """The heaviest tile of a packed-word stream as the kernels' warps see
+    it: the share of its records each warp's 8x4 pixel block keeps after
+    culling (the busiest warp's walk bounds the kernel), and the share of
+    its pixels whose transmittance is exactly 0 after the run (they stop
+    even at eps 0)."""
+    import torch
+
+    from splat_renderer_tpu_torch.ops.tile_blend import cull_live_plain, staged_cut2, warp_rects
+    from splat_renderer_tpu_torch.render.blend import splat_alpha_planes
+    from splat_renderer_tpu_torch.render.packing import U32_MASK, unpack_words
+
+    dev = binned["offsets"].device
+    t = int(torch.argmax(binned["counts"]))
+    lo, hi = int(binned["offsets"][t]), int(binned["offsets"][t + 1])
+    ranks = binned["pair_rank"][lo:hi].long()
+    u32 = lambda w: w[ranks].to(torch.int64) & U32_MASK  # noqa: E731
+    cx, cy, r, op, _, _, _, ang, ratio = unpack_words(
+        u32(binned["rec_pos"]), u32(binned["rec_ro"]), u32(binned["rec_rgb"]), cfg)
+    cut2, rr = staged_cut2(r, op, ratio, cfg)
+    ox = float((t % cfg.tiles_x) * cfg.tile_w)
+    oy = float((t // cfg.tiles_x) * cfg.tile_h)
+    rect = warp_rects(cfg).to(dev)
+    col = lambda v: v[:, None]  # noqa: E731
+    live = cull_live_plain(col(cx), col(cy), col(cut2), col(rr), ox + rect[None, :, 0],
+                           ox + rect[None, :, 1], oy + rect[None, :, 2], oy + rect[None, :, 3],
+                           cfg.oriented, cfg.opaque and cfg.quad).float().mean(0)
+    pix = torch.arange(cfg.tile_pixels, device=dev)
+    px = (ox + pix % cfg.tile_w).float() + 0.5
+    py = (oy + pix // cfg.tile_w).float() + 0.5
+    alpha = splat_alpha_planes(col(cx), col(cy), col(r), col(op), col(ang), col(ratio),
+                               px[None], py[None], cfg)
+    trans = torch.cumprod(1.0 - alpha, 0)[-1]
+    return (f"tile {t} ({hi - lo} records): its warps keep {float(live.min()):.2f} to "
+            f"{float(live.max()):.2f} of them (all warps {float(live.mean()):.3f}); "
+            f"{float((trans == 0).float().mean()):.3f} of its pixels end at T = 0")
+
+
+def launch_lines(dev) -> None:
+    """Registers, shared memory and resident CTAs per SM (the occupancy
+    query) of the instantiations the phases below time, and K3's grid."""
+    from splat_renderer_tpu_torch import RenderConfig, surface_render_config
+    from splat_renderer_tpu_torch.ops import tile_blend, tile_blend_diff
+
+    head = RenderConfig(width=1920, height=1080, tile_size=32, tile_height=16)
+    static = RenderConfig(width=1920, height=1080)
+    rows = []
+    for label, cfg, sched, depth in (
+        ("tile_blend isotropic 32x16", head, "tile", False),
+        ("tile_blend_depth isotropic 32x16", head, "tile", True),
+        ("tile_blend isotropic 16x16", static, "tile", False),
+        ("tile_blend_xp isotropic 16x16", static, "tile_xp", False),
+        ("tile_blend_xp_depth isotropic 16x16", static, "tile_xp", True),
+        ("tile_blend oriented 16x16", static.replace(oriented=True), "tile", False),
+        ("tile_blend opaque oriented 16x16", surface_render_config(1920, 1080), "tile", False),
+    ):
+        i = tile_blend.launch_info(cfg, sched, depth)
+        rows.append(f"{label}: {i['registers']} registers, {i['smem_bytes']} B shared, "
+                    f"{i['ctas_per_sm']} CTAs/SM"
+                    + (f", grid {i['xp_grid']}" if sched == "tile_xp" else ""))
+    for label, cfg in (("diff_bwd isotropic 16x16", RenderConfig(width=512, height=512)),
+                       ("diff_bwd oriented 16x16", RenderConfig(width=512, height=512, oriented=True)),
+                       ("diff_bwd isotropic 32x16",
+                        RenderConfig(width=512, height=512, tile_size=32, tile_height=16)),
+                       ("diff_bwd oriented 32x16",
+                        RenderConfig(width=512, height=512, oriented=True, tile_size=32,
+                                     tile_height=16))):
+        i = tile_blend_diff.launch_info(cfg)
+        rows.append(f"{label}: chunk {i['bwd_chunk']}, {i['registers']} registers, "
+                    f"{i['smem_bytes']} B shared, {i['ctas_per_sm']} CTAs/SM")
+    log(f"phase 1: occupancy on {i['sms']} SMs: " + "; ".join(rows))
+
+
 def bound(name: str, n_bytes: float, evals: int, inside: int):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and the
     operations over their peak rates."""
@@ -242,7 +371,7 @@ def phase7_training_step(dev, card: str, n: int = 200_000, size: int = 512, fit_
     from splat_renderer_tpu_torch.camera import camera_tensors
     from splat_renderer_tpu_torch.fit import fit_splats
     from splat_renderer_tpu_torch.ops.tile_blend_diff import (
-        blend_binned_plain, diff_backward, diff_forward,
+        blend_binned_plain, bwd_chunk, diff_backward, diff_forward,
     )
     from splat_renderer_tpu_torch.render.binning import bin_planes_diff
     from splat_renderer_tpu_torch.render.compositor import tiles_to_image
@@ -304,7 +433,7 @@ def phase7_training_step(dev, card: str, n: int = 200_000, size: int = 512, fit_
             ev[1].record()
             binned = bin_planes_diff(planes, cfg)
             ev[2].record()
-            outs = diff_forward(binned, cfg)
+            outs = diff_forward(binned, cfg, residuals=True)  # as the step runs it
             ev[3].record()
             torch.mean((tiles_to_image(outs[0], outs[1], cfg) - target) ** 2)
             ev[4].record()
@@ -354,12 +483,17 @@ def phase7_training_step(dev, card: str, n: int = 200_000, size: int = 512, fit_
 
     # the kernels alone at this stream, against the twin
     binned = bin_planes_diff(planes_of(spl), cfg)
-    outs = diff_forward(binned, cfg)
+    # the training step's form of K4: it also leaves K5's residuals
+    *outs, t_start = diff_forward(binned, cfg, residuals=True)
     g = torch.Generator(device=dev).manual_seed(3)
     cots = [torch.rand(o.shape, generator=g, device=dev) - 0.5 for o in outs]
-    k_grads = diff_backward(binned, cfg, cots)
-    k_ms = elapsed_ms(lambda: diff_forward(binned, cfg), 20)
-    b_ms = elapsed_ms(lambda: diff_backward(binned, cfg, cots), 20)
+    k_grads = diff_backward(binned, cfg, cots, t_start)
+    k_grads2 = diff_backward(binned, cfg, cots, t_start)
+    torch.cuda.synchronize()
+    check(torch.equal(k_grads, k_grads2), "200k stream: two K5 runs differ")
+    k_ms = elapsed_ms(lambda: diff_forward(binned, cfg, residuals=True), 20)
+    k_bare_ms = elapsed_ms(lambda: diff_forward(binned, cfg), 20)
+    b_ms = elapsed_ms(lambda: diff_backward(binned, cfg, cots, t_start), 20)
     with torch.no_grad():
         p_out = blend_binned_plain(binned, cfg)
         p_ms = elapsed_ms(lambda: blend_binned_plain(binned, cfg), 2)
@@ -388,16 +522,25 @@ def phase7_training_step(dev, card: str, n: int = 200_000, size: int = 512, fit_
     n_pairs = int(binned["offsets"][-1])
     t, tp, nf = cfg.num_tiles, cfg.tile_pixels, pl.shape[1]
     head = (t + 1) * 4 + n_pairs * 4 + pl.shape[0] * nf * 4  # offsets, ranks, planes
-    fwd_bytes = head + t * tp * 5 * 4
-    # + slots, cotangents, the forward's residuals, rows
+    # the chunk-start transmittances K4 writes: an output of the forward as
+    # the step runs it.  They are this design's way to one backward pass,
+    # not bytes the adjoint needs, so the backward's bound does not count them
+    bc = bwd_chunk(cfg)
+    resid = int(((binned["counts"] + (bc - 1)) // bc).sum()) * tp * 4
+    fwd_bytes = head + t * tp * 5 * 4 + resid
+    # + slots, cotangents, rows
     bwd_bytes = head + n_pairs * 4 + 2 * t * tp * 5 * 4 + n_pairs * nf * 4
+    culled = cull_share(pl[:, 0], pl[:, 1], cut2, torch.ones_like(r), binned, cfg)
+    log(f"phase 7: the {n // 1000}k @{size}x{size} stream's tiles: {tile_load(binned)}")
     fb = bound("tile_blend_diff_fwd", fwd_bytes, evals, inside)
     bb = bound("tile_blend_diff_bwd", bwd_bytes, evals, inside)
     log(f"phase 7: kernels at the {n // 1000}k @{size}x{size} stream ({n_pairs} pairs, "
-        f"{inside} of {evals} evaluations inside the support): K4 {k_ms:.3f} ms (bound "
-        f"{fb[0]:.4f} ms, {fb[1]}), twin {p_ms:.3f} ms, max-abs {d_fwd:.3g}; K5 {b_ms:.3f} ms "
-        f"(bound {bb[0]:.4f} ms, {bb[1]}), twin backward {pb_ms:.3f} ms (peak {twin_gib:.2f} "
-        f"GiB), max-rel {rel:.3g}; {card}")
+        f"{inside} of {evals} evaluations inside the support; culling removes {culled:.3f} of "
+        f"the (record, warp) pairs): K4 {k_ms:.3f} ms with K5's residuals ({resid} B), "
+        f"{k_bare_ms:.3f} ms without (bound {fb[0]:.4f} ms, {fb[1]}), twin {p_ms:.3f} ms, "
+        f"max-abs {d_fwd:.3g}; K5 {b_ms:.3f} ms (bound {bb[0]:.4f} ms, {bb[1]}), two runs "
+        f"bit-equal, twin backward {pb_ms:.3f} ms (peak {twin_gib:.2f} GiB), max-rel {rel:.3g}; "
+        f"{card}")
     return dict(launches=launches, fwd=(k_ms, p_ms, fb, d_fwd), bwd=(b_ms, pb_ms, bb, d_bwd))
 
 
@@ -692,8 +835,12 @@ def phase10_static_scene(dev, card: str, n: int = 1_000_000):
     plain_ms = elapsed_ms(lambda: blend_tiles_plain(binned, rcfg, eps=0.0, pair_chunk=8192), 2)
     bnd, n_pairs, evals, inside = stream_bound("tile_blend_xp", binned, rcfg, False)
     nonempty = int((binned["counts"] > 0).sum())
+    log(f"phase 10: the static-scene stream's tiles: {tile_load(binned)}; "
+        f"{heaviest_tile(binned, rcfg)}")
     log(f"phase 10: kernels at the static-scene stream ({n_pairs} pairs, {nonempty} of "
-        f"{rcfg.num_tiles} tiles nonempty, {inside} of {evals} evaluations inside the support), "
+        f"{rcfg.num_tiles} tiles nonempty, "
+        f"{inside} of {evals} evaluations inside the support; culling removes "
+        f"{packed_cull_share(binned, rcfg):.3f} of the (record, warp) pairs), "
         "ms in the order tile, tile_xp, tile_xp, tile: "
         + "; ".join(f"{k} " + " / ".join(f"{v:.3f}" for v in vs) for k, vs in t.items())
         + f"; plain twin (eps 0) {plain_ms:.3f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}); tile_xp "
@@ -825,7 +972,8 @@ def phase11_datagen(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_0
     plain_ms = elapsed_ms(
         lambda: blend_tiles_plain(binned, rcfg, eps=0.0, pair_chunk=8192, with_depth=True), 2)
     bnd, n_pairs, evals, inside = stream_bound("tile_blend_depth", binned, rcfg, True)
-    log(f"phase 11: tile_blend_depth at the {n}-splat @1080p stream ({n_pairs} pairs): kernel "
+    log(f"phase 11: tile_blend_depth at the {n}-splat @1080p stream ({n_pairs} pairs; culling "
+        f"removes {packed_cull_share(binned, rcfg):.3f} of the (record, warp) pairs): kernel "
         f"{k_ms[0]:.3f} / {k_ms[1]:.3f} ms at eps 0 (without depth, between them: {k1_ms:.3f}), "
         f"{e_ms:.3f} ms at eps {rcfg.transmittance_eps}; plain twin {plain_ms:.3f} ms; bound "
         f"{bnd[0]:.4f} ms ({bnd[1]}); max-abs colour/alpha {err_ca:.3g} (<= {EPS_TOL}), depth "
@@ -940,6 +1088,7 @@ def main() -> None:
         f"CUDA {torch.version.cuda}; kernels built/loaded in "
         f"{time.perf_counter() - t0:.2f} s (nvcc "
         + ", ".join(f"{k} {build.build_seconds[k]:.2f} s" for k in sources) + ")")
+    launch_lines(dev)
 
     max_err = 0.0
     depth_err = xp_err = 0.0  # phase 9: worst kernel-vs-twin error by kernel
@@ -1105,7 +1254,9 @@ def main() -> None:
         f"{kernel_ms_2:.3f} ms at eps {rcfg.transmittance_eps}, plain twin (pair_chunk 8192) "
         f"{plain_ms:.3f} ms; at eps 0: kernel {exact_ms:.3f} ms, twin {plain_exact_ms:.3f} ms, "
         f"bound {k1_bound[0]:.4f} ms ({k1_bound[1]}; {inside} of {evals} evaluations inside "
-        f"the support), max-abs {d_main:.3g}; {card}")
+        f"the support; culling removes {packed_cull_share(binned, rcfg):.3f} of the (record, "
+        f"warp) pairs), max-abs {d_main:.3g}; {card}")
+    log(f"phase 3: that stream's tiles: {tile_load(binned)}; {heaviest_tile(binned, rcfg)}")
 
     # ---- phase 4: opaque oriented surface preset, 2 frames ----
     scene4 = demo_scene()

@@ -4,7 +4,9 @@
 // Replaces the Pallas TPU kernels splat_renderer_tpu/ops/
 // tile_blend_diff.py::_make_fwd_kernel (forward) and ::_make_bwd_kernel
 // (backward).  The plain twin is ops/tile_blend_diff.py::
-// blend_planes_plain; the gradients are those of its autograd.
+// blend_planes_plain; the gradients are those of its autograd, and
+// ops/tile_blend_diff.py::blend_adjoint_plain mirrors the backward's
+// recurrence in plain PyTorch.
 //
 // Inputs are continuous float32 record planes in canonical order (N, nf),
 // nf = 8 isotropic [cx cy r op cr cg cb d] or 10 oriented
@@ -17,7 +19,9 @@
 //   a = min(op * shape, alpha_cap).
 // Forward, per pixel, front to back with no early exit (truncation would
 // bias the gradients): C += rgb a T, D += d a T, T *= 1 - a; the outputs
-// are C, alpha = 1 - T and D (the alpha-weighted depth).
+// are C, alpha = 1 - T and D (the alpha-weighted depth).  When a gradient
+// will be asked for, the forward also leaves each pixel's T at the start of
+// every backward chunk (one float per pixel per `bwd_chunk` records).
 //
 // Backward (the blend adjoint): for pixel cotangents gC, gA, gD and
 // w_i = gC . rgb_i + gD d_i,
@@ -29,38 +33,78 @@
 // prefix and divides by 1 - a_i: in float32 that cancellation is magnified
 // by 1 / (1 - a_i), up to 1e7 (the alpha cap) where an opacity-1 splat's
 // centre nearly meets a pixel centre.  Here R and Q come from back-to-front
-// recurrences with no
-// division: a first pass stores each 32-record chunk's composite (R, Q)
-// per pixel in `scratch`, a pass over the chunks back to front turns them
-// into suffixes, and the main pass walks the chunks forward, computing T_i
-// forward inside a chunk (held in registers) and the adjoint back to front.
-// The per-record sum over a tile's pixels is a warp shuffle sum followed by
-// a fixed-order sum over warps in shared memory: no float atomics, so two
-// runs give the same bits.  Each pair writes its row of nf gradients to
-// its pre-sort slot (c * n + rank); slots are unique, so the write is an
-// assignment and the wrapper's sum over the cap slots of a record is
-// deterministic too.
+// recurrences with no division, in ONE pass over the pair stream: a tile's
+// chunks are walked last to first with R and Q carried in registers; inside
+// a chunk T_i is rebuilt forward from the chunk-start T the forward left
+// (the same products in the same order, so the same bits), and the adjoint
+// runs back to front.
 //
-// What bounds it on the H100: arithmetic.  A pair reads nf * 4 bytes of
-// record and is evaluated against every pixel of its tile (256 for 16x16
-// tiles): some 10 FP32 operations for the support test, and inside the
-// support one expf and about 15 (forward) or 45 (backward) more.  The
-// backward runs each pair's support test three times and its expf twice
-// (pass 1, then pass 2's forward and backward walks over a chunk), where a
-// one-pass adjoint reading the forward's residuals would run each once,
-// and pays the per-record warp sums (8 or 11 fields) and two barriers per
-// chunk of 32 records.
+// What bounds it on the H100: operations, not bytes, and in practice the
+// walk of the heaviest tile.  A pair reads nf * 4 bytes of record and is
+// evaluated against every pixel of its tile (256 for 16x16 tiles): some 10
+// FP32 operations for the support test, and inside the support one expf
+// and about 15 (forward) or 45 (backward) more, plus the sum of each
+// record's 8 or 11 gradient terms over the tile's pixels.  A training
+// frame has a few hundred nonempty tiles and its heaviest holds several
+// times the mean, so the time is the latency of that tile's chunk loop
+// (cull, forward, adjoint, reduction, one barrier), not the card's
+// arithmetic rate.  There are no matrix products, so the tensor cores
+// (wgmma) have no part.
 //
-// Design: one CTA per tile, one thread per pixel (tile_pixels must be a
-// multiple of 32 and at most 1024).  Records are staged through shared
-// memory in chunks, each decoded once (cull, ellipse cos/sin, cutoff,
-// inv_s2).  Built with -fmad=false like tile_blend.cu: the support cutoff
-// is a hard threshold and must round as the PyTorch twin does.
+// Design of the backward: one CTA per tile, one thread per pixel
+// (tile_pixels a multiple of 32, at most 1024), a warp over a compact 8x4
+// pixel block where the tile allows it.
+// * Warp-level culling: per chunk each lane tests one record against the
+//   warp's rectangle of pixel centres (warp_cull.cuh's `cull_live`, the test
+//   tile_blend.cu uses: nearest-point distance against the cutoff; oriented
+//   records against cut2 / min(1, rr)^2 widened by kCullSlack), and a
+//   ballot gives the warp its live records.  A dead record costs the warp
+//   nothing: no test per pixel, no shuffles, no stores; the cross-warp sum
+//   reads each warp's mask of the records it wrote.
+// * One support test and one expf per evaluation: the forward walk keeps
+//   T_i and shape_i of the evaluations inside the support in shared memory
+//   (thread-private columns, no bank conflicts) and their mask in a
+//   register, so the loops stay rolled, the kernel small in registers and
+//   instruction cache, and the adjoint walk re-reads them.
+// * Both walks take a warp's live records in batches (4 forward; 4
+//   isotropic, 2 oriented, 1 in 1024-thread blocks backward): the shapes,
+//   the gradient terms and the warp sums of a batch are independent and
+//   overlap in the pipeline; only T forward and R, Q backward are serial.
+//   Lanes outside a record's support compute on stale values and select 0.
+// * The per-record sum over a warp's pixels is a halving butterfly: each
+//   round exchanges half of the remaining values with __shfl_xor_sync (8
+//   values over 32 lanes take 9 shuffles, 11 padded to 16 take 16), then
+//   one lane per value writes it.  The sum over warps runs in warp order
+//   over the live warps, by one thread per (record, value).  The order of
+//   additions is fixed by lane and warp index: no float atomics, two runs
+//   give the same bits.
+// * Staging off the critical path: the rows of the next chunk (the one
+//   before, in record order) are copied into shared memory by cp.async while
+//   this chunk computes, with their ranks loaded a chunk earlier still, and
+//   decoded (cull, ellipse cos/sin, cutoff, inv_s2) by the threads that
+//   copied them; three record buffers and two partial-sum buffers leave ONE
+//   barrier per chunk.
+// Each pair writes its row of nf gradients to its pre-sort slot
+// (c * n + rank); slots are unique, so the write is an assignment and the
+// wrapper's sum over the cap slots of a record is deterministic too.
+//
+// Design of the forward: one CTA per tile, one thread per pixel, records
+// staged through shared memory in chunks of 256, each decoded once.
+//
+// Built with -fmad=false like tile_blend.cu: the support cutoff is a hard
+// threshold and must round as the PyTorch twin does.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_cull.cuh"
+
 namespace {
+
+using warp_cull::ellipse_cos_sin;
+using warp_cull::kFull;
+using warp_cull::Rect;
 
 struct DiffParams {
   float min_r;            // min_screen_radius
@@ -73,23 +117,15 @@ struct DiffParams {
 };
 
 constexpr int kFwdChunk = 256;  // records staged per forward chunk
-constexpr int kBwdChunk = 32;   // records staged per backward chunk
-constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kMaxBwdChunk = 32;  // a backward chunk's records fit one 32-bit mask
+constexpr int kFwdBatch = 4;  // records of the backward's forward walk evaluated together
 
-__device__ __forceinline__ void ellipse_cos_sin(float x, float& c, float& s) {
-  // render/blend.py::ellipse_cos_sin, float32 coefficients in hex
-  const float x2 = x * x;
-  s = x * (0x1.fffff6p-1f
-           + x2 * (-0x1.5554dep-3f
-                   + x2 * (0x1.110a9p-7f
-                           + x2 * (-0x1.9f7ff4p-13f
-                                   + x2 * (0x1.6aee7ep-19f + x2 * -0x1.60c69p-26f)))));
-  c = 0x1p+0f
-      + x2 * (-0x1.fffffap-2f
-              + x2 * (0x1.555508p-5f
-                      + x2 * (-0x1.6c1098p-10f
-                              + x2 * (0x1.9fa10cp-16f
-                                      + x2 * (-0x1.2320aap-22f + x2 * 0x1.dd704ap-30f)))));
+// Row of t_start that holds tile t's first backward chunk, for a run that
+// starts at pair `start`: the sum of ceil(count / bc) over the tiles before t
+// is at most start / bc + t, so the tiles' rows never overlap and
+// pairs / bc + tiles rows hold them all, without a table.
+__device__ __forceinline__ size_t chunk_row(int t, int start, int bc) {
+  return static_cast<size_t>(start / bc + t);
 }
 
 // One record decoded for the pixel loop.
@@ -99,11 +135,10 @@ struct Rec {
   float r, ratio;      // backward's record-scale terms
 };
 
+// Decode the nf floats of one record's row at q (device or shared memory).
 template <bool ORIENTED>
-__device__ __forceinline__ Rec load_rec(const float* __restrict__ planes, int rank,
-                                        const DiffParams& p) {
+__device__ __forceinline__ Rec decode_rec(const float* q, const DiffParams& p) {
   constexpr int nf = ORIENTED ? 10 : 8;
-  const float* q = planes + static_cast<size_t>(rank) * nf;
   Rec v;
   v.cx = q[0];
   v.cy = q[1];
@@ -143,13 +178,16 @@ __device__ __forceinline__ float dist2_of(float dx, float dy, float ca, float sa
   return dx * dx + dy * dy;
 }
 
-template <bool ORIENTED>
+// BC: the backward's chunk when its residual is asked for (8, 16 or 32: T
+// at the start of every BC records goes to t_start), 0 when it is not.
+template <bool ORIENTED, int BC>
 __global__ void __launch_bounds__(1024) diff_fwd_kernel(const int* __restrict__ offsets,
                                 const int* __restrict__ pair_rank,
                                 const float* __restrict__ planes,
                                 float* __restrict__ tile_color,
                                 float* __restrict__ tile_alpha,
-                                float* __restrict__ tile_depth, DiffParams p) {
+                                float* __restrict__ tile_depth,
+                                float* __restrict__ t_start, DiffParams p) {
   __shared__ float s_cx[kFwdChunk], s_cy[kFwdChunk], s_op[kFwdChunk];
   __shared__ float s_cut2[kFwdChunk], s_inv_s2[kFwdChunk];
   __shared__ float s_r[kFwdChunk], s_g[kFwdChunk], s_b[kFwdChunk], s_d[kFwdChunk];
@@ -168,7 +206,8 @@ __global__ void __launch_bounds__(1024) diff_fwd_kernel(const int* __restrict__ 
   for (int base = start; base < end; base += kFwdChunk) {
     const int n = min(kFwdChunk, end - base);
     for (int j = tid; j < n; j += blockDim.x) {
-      const Rec v = load_rec<ORIENTED>(planes, pair_rank[base + j], p);
+      const Rec v = decode_rec<ORIENTED>(
+          planes + static_cast<size_t>(pair_rank[base + j]) * (ORIENTED ? 10 : 8), p);
       s_cx[j] = v.cx;
       s_cy[j] = v.cy;
       s_op[j] = v.op;
@@ -185,7 +224,7 @@ __global__ void __launch_bounds__(1024) diff_fwd_kernel(const int* __restrict__ 
       }
     }
     __syncthreads();
-    for (int j = 0; j < n; ++j) {
+    auto blend = [&](int j) {
       float u, vr;
       const float d2 = dist2_of<ORIENTED>(px - s_cx[j], py - s_cy[j],
                                           ORIENTED ? s_ca[j] : 0.0f,
@@ -201,6 +240,25 @@ __global__ void __launch_bounds__(1024) diff_fwd_kernel(const int* __restrict__ 
         cd += s_d[j] * w;
         trans *= 1.0f - a;
       }
+    };
+    if (BC == 0) {
+      for (int j = 0; j < n; ++j) blend(j);
+    } else {
+      // in runs of BC records (kFwdChunk is a multiple of BC), so that the
+      // residual costs the record loop no test; a full run is unrolled, which
+      // lets its records' shared-memory loads overlap (it made this form
+      // faster than the plain loop, residual and all)
+      constexpr int kRun = BC > 0 ? BC : 1;
+      float* ts = t_start + (chunk_row(t, start, kRun) + (base - start) / kRun) * blockDim.x + tid;
+      for (int j0 = 0; j0 < n; j0 += kRun, ts += blockDim.x) {
+        __stcs(ts, trans);  // written once, read once by the backward: streaming
+        if (j0 + kRun <= n) {
+#pragma unroll
+          for (int j = 0; j < kRun; ++j) blend(j0 + j);
+        } else {
+          for (int j = j0; j < n; ++j) blend(j);
+        }
+      }
     }
     __syncthreads();  // before the next chunk overwrites the staging
   }
@@ -213,31 +271,63 @@ __global__ void __launch_bounds__(1024) diff_fwd_kernel(const int* __restrict__ 
   tile_depth[pix] = cd;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-  return v;  // lane 0 holds the sum, in a fixed order
+// A decoded record in shared memory: four float4 and its gradient slot.
+//   a = (cx, cy, cut2, inv_s2)   b = (op, cr, cg, cb)
+//   c = (d, ca, sa, rr)          e = (r, ratio, cull bound, -)
+struct RecBuf {
+  float4 a[kMaxBwdChunk], b[kMaxBwdChunk], c[kMaxBwdChunk], e[kMaxBwdChunk];
+  int slot[kMaxBwdChunk];
+};
+
+constexpr int kRawStride = 12;  // floats per raw row in shared memory (16-byte aligned)
+
+// Sum each of g[0..NRP)'s values over the warp's 32 lanes with the halving
+// butterfly and write value f to out[f] (f < NR).  Lane and round fix the
+// order of every addition.  out null: the sums are dropped.
+template <int NR, int NRP>
+__device__ __forceinline__ void warp_reduce_store(float (&g)[NRP], int lane, float* out) {
+  static_assert(NRP == 8 || NRP == 16, "8 or 16 values");
+  int bit = 16;
+#pragma unroll
+  for (int half = NRP / 2; half >= 1; half >>= 1, bit >>= 1) {
+    const bool hi = (lane & bit) != 0;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = hi ? g[i] : g[i + half];
+      const float keep = hi ? g[i + half] : g[i];
+      g[i] = keep + __shfl_xor_sync(kFull, send, bit);
+    }
+  }
+  // every lane now holds value (lane / (32 / NRP)) summed over NRP lanes
+  for (; bit >= 1; bit >>= 1) g[0] += __shfl_xor_sync(kFull, g[0], bit);
+  constexpr int kLanesPerValue = 32 / NRP;
+  const int f = lane / kLanesPerValue;
+  if (out != nullptr && (lane & (kLanesPerValue - 1)) == 0 && f < NR) out[f] = g[0];
 }
 
-// MAXT: the largest block this instantiation launches with, so ptxas fits
-// its registers (the per-chunk T and shape arrays live there) to the block
+// MAXT: the largest block this instantiation launches with
 template <bool ORIENTED, int MAXT>
 __global__ void __launch_bounds__(MAXT) diff_bwd_kernel(const int* __restrict__ offsets,
                                 const int* __restrict__ pair_rank,
                                 const int* __restrict__ pair_slot,
-                                const int* __restrict__ chunk_off,
                                 const float* __restrict__ planes,
                                 const float* __restrict__ g_color,
                                 const float* __restrict__ g_alpha,
                                 const float* __restrict__ g_depth,
-                                float* __restrict__ scratch,
-                                float* __restrict__ grad_slots, DiffParams p) {
+                                const float* __restrict__ t_start,
+                                float* __restrict__ grad_slots, int bc, DiffParams p) {
   // per-pixel sums per record: cx cy sum(g_nd2 nd2) op cr cg cb d
   // [+ g_ca g_sa sum(g_vr vr)]
   constexpr int NR = ORIENTED ? 11 : 8;
+  constexpr int NRP = ORIENTED ? 16 : 8;  // padded to a power of two
   constexpr int nf = ORIENTED ? 10 : 8;
-  __shared__ Rec s_rec[kBwdChunk];
-  __shared__ int s_slot[kBwdChunk];
-  extern __shared__ float s_part[];  // [warps][kBwdChunk][NR]
+  // records per batch of the adjoint walk, by the registers the block allows
+  constexpr int BB = MAXT > 512 ? 1 : (ORIENTED ? 2 : 4);
+  __shared__ RecBuf s_rec[3];
+  __shared__ __align__(16) float s_raw[kMaxBwdChunk * kRawStride];
+  __shared__ unsigned s_live[2][32];
+  // [2][warps][bc][NR] partial sums, then T_i and shape_i: [bc][threads] each
+  extern __shared__ float s_dyn[];
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
@@ -245,181 +335,243 @@ __global__ void __launch_bounds__(MAXT) diff_bwd_kernel(const int* __restrict__ 
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = tp >> 5;
-  const float px = static_cast<float>((t % p.tiles_x) * p.tile_w + tid % p.tile_w) + 0.5f;
-  const float py = static_cast<float>((t / p.tiles_x) * p.tile_h + tid / p.tile_w) + 0.5f;
   const int start = offsets[t];
-  const int end = offsets[t + 1];
-  const int nchunks = (end - start + kBwdChunk - 1) / kBwdChunk;
+  const int cnt = offsets[t + 1] - start;
+  if (cnt <= 0) return;  // the caller zeroed the rows
+  const int nchunks = (cnt + bc - 1) / bc;
 
-  const size_t pix = static_cast<size_t>(t) * tp + tid;
+  float* s_part = s_dyn;
+  const int part_floats = nwarps * bc * NR;
+  float* s_t = s_dyn + 2 * part_floats + tid;  // column tid: T_i at row i
+  float* s_s = s_t + bc * tp;                  // shape_i
+
+  // this thread's pixel: a warp covers an 8x4 block where the tile allows it
+  int lx, ly;
+  warp_cull::tile_pixel(tid, p.tile_w, p.tile_h, lx, ly);
+  const int pixel = ly * p.tile_w + lx;
+  const float px = static_cast<float>((t % p.tiles_x) * p.tile_w + lx) + 0.5f;
+  const float py = static_cast<float>((t / p.tiles_x) * p.tile_h + ly) + 0.5f;
+  const Rect rc = warp_cull::warp_rect(px, py, true);  // the warp's pixel centres
+
+  const size_t pix = static_cast<size_t>(t) * tp + pixel;
   const float gcr = g_color[pix * 3 + 0], gcg = g_color[pix * 3 + 1],
               gcb = g_color[pix * 3 + 2];
   const float gd = g_depth[pix];
   const float ga_out = g_alpha[pix];
-  // this pixel's (R, Q) per chunk: slot c at mine[2c * tp], mine[(2c+1) * tp]
-  float* mine = scratch + static_cast<size_t>(chunk_off[t]) * 2 * tp + tid;
+  const float* t_mine = t_start + chunk_row(t, start, bc) * tp + pixel;
 
-  auto stage = [&](int base, int n) {
-    if (tid < n) {
-      s_rec[tid] = load_rec<ORIENTED>(planes, pair_rank[base + tid], p);
-      s_slot[tid] = pair_slot[base + tid];
+  // ---- staging: thread j < bc owns record j of every chunk ----
+  int rank_n = 0, slot_n = 0, slot_d = 0;
+  auto chunk_len = [&](int c) { return min(bc, cnt - c * bc); };
+  auto load_ranks = [&](int c) {  // into registers, a chunk ahead of its rows
+    if (c >= 0 && tid < chunk_len(c)) {
+      rank_n = pair_rank[start + c * bc + tid];
+      slot_n = pair_slot[start + c * bc + tid];
     }
-    __syncthreads();
+  };
+  auto copy_rows = [&](int c) {  // asynchronous: planes row -> s_raw row
+    if (tid < chunk_len(c)) {
+      const float* src = planes + static_cast<size_t>(rank_n) * nf;
+      float* dst = s_raw + tid * kRawStride;
+      if (ORIENTED) {  // 40-byte rows are 8-byte aligned
+#pragma unroll
+        for (int i = 0; i < 5; ++i) __pipeline_memcpy_async(dst + 2 * i, src + 2 * i, 8);
+      } else {  // 32-byte rows of a 16-byte aligned base
+        __pipeline_memcpy_async(dst, src, 16);
+        __pipeline_memcpy_async(dst + 4, src + 4, 16);
+      }
+      slot_d = slot_n;
+    }
+    __pipeline_commit();
+  };
+  auto decode_rows = [&](int c, RecBuf& rb) {  // by the thread that copied them
+    __pipeline_wait_prior(0);
+    if (tid < chunk_len(c)) {
+      const Rec v = decode_rec<ORIENTED>(s_raw + tid * kRawStride, p);
+      rb.a[tid] = make_float4(v.cx, v.cy, v.cut2, v.inv_s2);
+      rb.b[tid] = make_float4(v.op, v.cr, v.cg, v.cb);
+      rb.c[tid] = make_float4(v.d, v.ca, v.sa, v.rr);
+      rb.e[tid] = make_float4(v.r, v.ratio,
+                              warp_cull::cull_bound<ORIENTED, false>(v.cut2, v.rr), 0.0f);
+      rb.slot[tid] = slot_d;
+    }
   };
 
-  // pass 1: each chunk's own composite relative to its start,
-  // R_c = sum_k w_k a_k prod_{j<k}(1 - a_j), Q_c = prod_k (1 - a_k)
-  for (int c = 0; c < nchunks; ++c) {
-    const int base = start + c * kBwdChunk;
-    const int n = min(kBwdChunk, end - base);
-    stage(base, n);
-    float r = 0.0f, q = 1.0f;
-    for (int j = 0; j < n; ++j) {
-      const Rec& v = s_rec[j];
-      float u, vr;
-      const float d2 = dist2_of<ORIENTED>(px - v.cx, py - v.cy, v.ca, v.sa, v.rr, u, vr);
-      if (d2 <= v.cut2) {
-        const float a = fminf(v.op * expf(p.neg_inv_2sigma2 * (d2 * v.inv_s2)), p.alpha_cap);
-        const float w_pan = ((v.cr * gcr + v.cg * gcg) + v.cb * gcb) + v.d * gd;
-        r += (w_pan * a) * q;
-        q *= 1.0f - a;
-      }
-    }
-    mine[(2 * c) * tp] = r;
-    mine[(2 * c + 1) * tp] = q;
-    __syncthreads();  // before the next chunk overwrites the staging
-  }
-  // suffix over chunks, back to front: slot c becomes the composite of all
-  // records after chunk c, relative to its end
-  {
-    float ra = 0.0f, qa = 1.0f;
-    for (int c = nchunks - 1; c >= 0; --c) {
-      const float rc = mine[(2 * c) * tp], qc = mine[(2 * c + 1) * tp];
-      mine[(2 * c) * tp] = ra;
-      mine[(2 * c + 1) * tp] = qa;
-      ra = rc + qc * ra;
-      qa = qc * qa;
-    }
-  }
+  load_ranks(nchunks - 1);
+  copy_rows(nchunks - 1);
+  load_ranks(nchunks - 2);
+  decode_rows(nchunks - 1, s_rec[0]);
+  __syncthreads();
 
-  // pass 2: forward over chunks; inside a chunk, T_i forward, then the
-  // adjoint back to front with R_i = w_{i+1} a_{i+1} + (1 - a_{i+1}) R_{i+1}
-  // (what follows record i, seen through it) and Q_i = prod_{j>i} (1 - a_j):
-  //   dL/da_i = T_i (w_i - R_i + gA Q_i)
-  float trans = 1.0f;
-  for (int c = 0; c < nchunks; ++c) {
-    const int base = start + c * kBwdChunk;
-    const int n = min(kBwdChunk, end - base);
-    stage(base, n);
-    float t_loc[kBwdChunk], s_loc[kBwdChunk];
+  // what follows the current record, seen through it (R), and the product
+  // of 1 - a over the records behind it (Q), carried from chunk to chunk
+  float r_acc = 0.0f, q_acc = 1.0f;
+  // this pixel's T at the start of the chunk, read a chunk ahead
+  float trans_n = t_mine[static_cast<size_t>(nchunks - 1) * tp];
+  int k = 0;  // chunks done; record buffer k % 3, partial-sum buffer k & 1
+  for (int c = nchunks - 1; c >= 0; --c, ++k) {
+    const RecBuf& rb = s_rec[k % 3];
+    float* part = s_part + (k & 1) * part_floats + warp * bc * NR;
+    const int n = chunk_len(c);
+    float trans = trans_n;
+    if (c > 0) {
+      trans_n = t_mine[static_cast<size_t>(c - 1) * tp];
+      copy_rows(c - 1);
+      load_ranks(c - 2);
+    }
+
+    // the records this warp's pixels can touch
+    const unsigned live = __ballot_sync(
+        kFull, lane < n && warp_cull::cull_live<false>(rb.a[lane].x, rb.a[lane].y,
+                                                       rb.e[lane].z, rc));
+
+    // forward inside the chunk: T_i and shape_i of the evaluations inside.
+    // kFwdBatch records at a time: their shapes are independent (every lane
+    // runs the same instructions), only the product T is serial.
+    unsigned inside = 0u;   // this pixel is inside record j's support
+    unsigned touched = 0u;  // some pixel of the warp is
+    for (unsigned m = live; m != 0u;) {
+      int j[kFwdBatch];
+      float shape[kFwdBatch];
+      bool in[kFwdBatch];
 #pragma unroll
-    for (int j = 0; j < kBwdChunk; ++j) {
-      if (j < n) {
-        const Rec& v = s_rec[j];
+      for (int b = 0; b < kFwdBatch; ++b) {
+        // past the last live record the batch repeats it, outside
+        const bool valid = m != 0u;
+        j[b] = valid ? __ffs(m) - 1 : j[b > 0 ? b - 1 : 0];
+        m &= m - 1;
+        const float4 a = rb.a[j[b]];
+        const float4 cc = ORIENTED ? rb.c[j[b]] : make_float4(0.0f, 0.0f, 0.0f, 1.0f);
         float u, vr;
-        const float d2 = dist2_of<ORIENTED>(px - v.cx, py - v.cy, v.ca, v.sa, v.rr, u, vr);
-        t_loc[j] = trans;
-        s_loc[j] = 0.0f;
-        if (d2 <= v.cut2) {
-          s_loc[j] = expf(p.neg_inv_2sigma2 * (d2 * v.inv_s2));
-          trans *= 1.0f - fminf(v.op * s_loc[j], p.alpha_cap);
+        const float d2 = dist2_of<ORIENTED>(px - a.x, py - a.y, cc.y, cc.z, cc.w, u, vr);
+        shape[b] = expf(p.neg_inv_2sigma2 * (d2 * a.w));
+        in[b] = valid && d2 <= a.z;
+      }
+#pragma unroll
+      for (int b = 0; b < kFwdBatch; ++b) {
+        if (in[b]) {
+          s_t[j[b] * tp] = trans;
+          s_s[j[b] * tp] = shape[b];
+          trans *= 1.0f - fminf(rb.b[j[b]].x * shape[b], p.alpha_cap);
+          inside |= 1u << j[b];
         }
+        if (__any_sync(kFull, in[b])) touched |= 1u << j[b];
       }
     }
-    float r = mine[(2 * c) * tp];
-    float q = mine[(2 * c + 1) * tp];
+
+    // the adjoint, back to front:
+    //   R_i = w_{i+1} a_{i+1} + (1 - a_{i+1}) R_{i+1},  Q_i = prod_{j>i} (1 - a_j)
+    //   dL/da_i = T_i (w_i - R_i + gA Q_i)
+    // BB records at a time: only R and Q are serial; the warp sums of the
+    // records of a batch run side by side.  Lanes outside a record's
+    // support compute on stale values and select 0.
+    for (unsigned m = touched; m != 0u;) {
+      int j[BB];
+      bool valid[BB];
+      float g[BB][NRP];
 #pragma unroll
-    for (int jj = 0; jj < kBwdChunk; ++jj) {
-      const int j = kBwdChunk - 1 - jj;
-      if (j < n) {  // n is the same for the whole block
-        const Rec& v = s_rec[j];
-        const float dx = px - v.cx;
-        const float dy = py - v.cy;
+      for (int b = 0; b < BB; ++b) {
+        valid[b] = m != 0u;
+        j[b] = valid[b] ? 31 - __clz(m) : j[b > 0 ? b - 1 : 0];
+        m &= ~(1u << j[b]);
+        const bool in = valid[b] && ((inside >> j[b]) & 1u) != 0u;
+        const float4 a = rb.a[j[b]], rgb = rb.b[j[b]], cc = rb.c[j[b]];
+        const float dx = px - a.x;
+        const float dy = py - a.y;
         float u, vr;
-        const float d2 = dist2_of<ORIENTED>(dx, dy, v.ca, v.sa, v.rr, u, vr);
-        const bool in = d2 <= v.cut2;
-        float g[NR];
+        const float d2 = dist2_of<ORIENTED>(dx, dy, cc.y, cc.z, cc.w, u, vr);
+        const float nd2 = d2 * a.w;
+        const float shape = s_s[j[b] * tp];
+        const float a_raw = rgb.x * shape;
+        const float al = fminf(a_raw, p.alpha_cap);
+        const float ti = s_t[j[b] * tp];
+        const float w_pan = ((rgb.y * gcr + rgb.z * gcg) + rgb.w * gcb) + cc.x * gd;
+        const float at = al * ti;
+        const float ga = ti * ((w_pan - r_acc) + ga_out * q_acc);
+        const float g_prod = (a_raw < p.alpha_cap) ? ga : 0.0f;
+        const float g_nd2 = ((g_prod * rgb.x) * p.neg_inv_2sigma2) * shape;
+        const float g_dist2 = g_nd2 * a.w;
 #pragma unroll
-        for (int f = 0; f < NR; ++f) g[f] = 0.0f;
-        if (in) {
-          const float nd2 = d2 * v.inv_s2;
-          const float shape = s_loc[j];
-          const float a_raw = v.op * shape;
-          const float a = fminf(a_raw, p.alpha_cap);
-          const float ti = t_loc[j];
-          const float w_pan = ((v.cr * gcr + v.cg * gcg) + v.cb * gcb) + v.d * gd;
-          const float at = a * ti;
-          const float ga = ti * ((w_pan - r) + ga_out * q);
-          const float g_prod = (a_raw < p.alpha_cap) ? ga : 0.0f;
-          const float g_nd2 = ((g_prod * v.op) * p.neg_inv_2sigma2) * shape;
-          const float g_dist2 = g_nd2 * v.inv_s2;
-          if (ORIENTED) {
-            const float g_u = (g_dist2 * 2.0f) * u;
-            const float g_vr = (g_dist2 * 2.0f) * vr;
-            g[0] = -(g_u * v.ca + g_vr * (-v.sa * v.rr));
-            g[1] = -(g_u * v.sa + g_vr * (v.ca * v.rr));
-            g[8] = g_u * dx + (g_vr * dy) * v.rr;
-            g[9] = g_u * dy - (g_vr * dx) * v.rr;
-            g[10] = g_vr * vr;
-          } else {
-            g[0] = (g_dist2 * -2.0f) * dx;
-            g[1] = (g_dist2 * -2.0f) * dy;
-          }
-          g[2] = g_nd2 * nd2;
-          g[3] = g_prod * shape;
-          g[4] = gcr * at;
-          g[5] = gcg * at;
-          g[6] = gcb * at;
-          g[7] = gd * at;
-          r = w_pan * a + (1.0f - a) * r;
-          q *= 1.0f - a;
+        for (int f = 0; f < NRP; ++f) g[b][f] = 0.0f;
+        if (ORIENTED) {
+          const float g_u = (g_dist2 * 2.0f) * u;
+          const float g_vr = (g_dist2 * 2.0f) * vr;
+          g[b][0] = -(g_u * cc.y + g_vr * (-cc.z * cc.w));
+          g[b][1] = -(g_u * cc.z + g_vr * (cc.y * cc.w));
+          g[b][8] = g_u * dx + (g_vr * dy) * cc.w;
+          g[b][9] = g_u * dy - (g_vr * dx) * cc.w;
+          g[b][10] = g_vr * vr;
+        } else {
+          g[b][0] = (g_dist2 * -2.0f) * dx;
+          g[b][1] = (g_dist2 * -2.0f) * dy;
         }
-        float* part = s_part + (static_cast<size_t>(warp) * kBwdChunk + j) * NR;
-        if (__any_sync(kFull, in)) {
+        g[b][2] = g_nd2 * nd2;
+        g[b][3] = g_prod * shape;
+        g[b][4] = gcr * at;
+        g[b][5] = gcg * at;
+        g[b][6] = gcb * at;
+        g[b][7] = gd * at;
 #pragma unroll
-          for (int f = 0; f < NR; ++f) {
-            const float sum = warp_sum(g[f]);
-            if (lane == 0) part[f] = sum;
-          }
-        } else if (lane == 0) {
+        for (int f = 0; f < NR; ++f) g[b][f] = in ? g[b][f] : 0.0f;
+        r_acc = in ? w_pan * al + (1.0f - al) * r_acc : r_acc;
+        q_acc = in ? q_acc * (1.0f - al) : q_acc;
+      }
 #pragma unroll
-          for (int f = 0; f < NR; ++f) part[f] = 0.0f;
-        }
+      for (int b = 0; b < BB; ++b) {
+        warp_reduce_store<NR, NRP>(g[b], lane, valid[b] ? part + j[b] * NR : nullptr);
       }
     }
+    const unsigned wrote = touched;
+    if (lane == 0) s_live[k & 1][warp] = wrote;
+
+    if (c > 0) decode_rows(c - 1, s_rec[(k + 1) % 3]);
     __syncthreads();
-    if (tid < n) {
-      // fixed-order sum over warps, then the record-scale terms
-      float s[NR];
-#pragma unroll
-      for (int f = 0; f < NR; ++f) s[f] = 0.0f;
-      for (int w = 0; w < nwarps; ++w) {
-        const float* part = s_part + (static_cast<size_t>(w) * kBwdChunk + tid) * NR;
-#pragma unroll
-        for (int f = 0; f < NR; ++f) s[f] += part[f];
+
+    // the sum over warps, in warp order over the warps that wrote, one
+    // thread per (record, value); then the record-scale terms.  bc * NRP
+    // and the block are multiples of 32, so whole warps take each trip.
+    const float* all = s_part + (k & 1) * part_floats;
+    for (int idx = tid; idx < bc * NRP; idx += tp) {
+      const int j = idx / NRP;
+      const int f = idx % NRP;
+      const bool mine = j < n && f < NR;
+      float s = 0.0f;
+      if (mine) {
+        for (int w = 0; w < nwarps; ++w) {
+          if ((s_live[k & 1][w] >> j) & 1u) s += all[(w * bc + j) * NR + f];
+        }
       }
-      const Rec& v = s_rec[tid];
-      float* row = grad_slots + static_cast<size_t>(s_slot[tid]) * nf;
-      row[0] = s[0];
-      row[1] = s[1];
-      row[3] = s[3];
-      row[4] = s[4];
-      row[5] = s[5];
-      row[6] = s[6];
-      row[nf - 1] = s[7];
+      const float4 e = rb.e[j], cc = rb.c[j];
+      float* row = grad_slots + static_cast<size_t>(rb.slot[j]) * nf;
+      const float sc = ORIENTED ? e.x * cc.w : e.x;
+      const float alive = (sc * sc > 1e-12f) ? 1.0f : 0.0f;
       if (ORIENTED) {
-        const float sc = v.r * v.rr;
-        const float live = (sc * sc > 1e-12f) ? 1.0f : 0.0f;
-        row[2] = ((s[2] * -2.0f) * live) / fmaxf(v.r, 1e-9f);
-        row[7] = -s[8] * v.sa + s[9] * v.ca;
-        const float g_rr = s[10] / v.rr + ((s[2] * -2.0f) * live) / v.rr;
-        row[8] = (v.ratio >= 1e-3f) ? g_rr : 0.0f;
-      } else {
-        const float live = (v.r * v.r > 1e-12f) ? 1.0f : 0.0f;
-        row[2] = ((s[2] * -2.0f) * live) / fmaxf(v.r, 1e-9f);
+        const int group = lane & ~(NRP - 1);
+        const float s2 = __shfl_sync(kFull, s, group + 2);
+        const float s9 = __shfl_sync(kFull, s, group + 9);
+        if (mine) {
+          if (f == 2) {
+            row[2] = ((s * -2.0f) * alive) / fmaxf(e.x, 1e-9f);
+          } else if (f < 7) {
+            row[f] = s;
+          } else if (f == 7) {
+            row[nf - 1] = s;
+          } else if (f == 8) {
+            row[7] = -s * cc.z + s9 * cc.y;
+          } else if (f == 10) {
+            const float g_rr = s / cc.w + ((s2 * -2.0f) * alive) / cc.w;
+            row[8] = (e.y >= 1e-3f) ? g_rr : 0.0f;
+          }
+        }
+      } else if (mine) {
+        if (f == 2) {
+          row[2] = ((s * -2.0f) * alive) / fmaxf(e.x, 1e-9f);
+        } else {
+          row[f] = s;  // f == 7 is the depth, row nf - 1 = 7
+        }
       }
     }
-    __syncthreads();  // before the next chunk overwrites staging and sums
+    // no barrier here: the next chunk works in the other buffers
   }
 }
 
@@ -428,66 +580,128 @@ DiffParams make_params(int tiles_x, int tile_w, int tile_h, float min_r, float m
   return DiffParams{min_r, margin2, neg_inv_2sigma2, alpha_cap, tiles_x, tile_w, tile_h};
 }
 
+bool valid_chunk(int bc) { return bc == 8 || bc == 16 || bc == 32; }
+
+size_t bwd_smem(int threads, int oriented, int bc) {
+  const size_t nr = oriented ? 11 : 8;
+  return (2 * static_cast<size_t>(threads / 32) * bc * nr + 2 * static_cast<size_t>(bc) * threads)
+         * sizeof(float);
+}
+
+// Pick the backward's instantiation for (oriented, threads).
+template <typename F>
+cudaError_t dispatch_bwd(int oriented, int threads, F&& f) {
+#define TBD_CASE(O, M) return f(diff_bwd_kernel<O, M>)
+  if (oriented) {
+    if (threads <= 256) TBD_CASE(true, 256);
+    if (threads <= 512) TBD_CASE(true, 512);
+    TBD_CASE(true, 1024);
+  }
+  if (threads <= 256) TBD_CASE(false, 256);
+  if (threads <= 512) TBD_CASE(false, 512);
+  TBD_CASE(false, 1024);
+#undef TBD_CASE
+}
+
 }  // namespace
 
 // Forward: composite every tile.  Device pointers: offsets (T+1) and
 // pair_rank (P) int32, planes (N, nf) float32 in canonical order; outputs
 // tile_color (T, tp, 3), tile_alpha (T, tp), tile_depth (T, tp) float32,
-// tp = tile_w * tile_h, a multiple of 32 and at most 1024.  Launches on
-// `stream` without synchronising; returns cudaGetLastError().
+// tp = tile_w * tile_h, a multiple of 32 and at most 1024.  With t_start
+// (P / bwd_chunk + T rows of tp float32) non-null it also writes each
+// pixel's transmittance at the start of every backward chunk (tile t's
+// chunks from row offsets[t] / bwd_chunk + t); bwd_chunk is 8, 16 or 32.
+// Launches on `stream` without synchronising; returns the CUDA error code.
 extern "C" int tile_blend_diff_forward(const int* offsets, const int* pair_rank,
                                        const float* planes, float* tile_color,
                                        float* tile_alpha, float* tile_depth,
-                                       int num_tiles, int tiles_x, int tile_w,
-                                       int tile_h, int oriented, float min_r,
+                                       float* t_start, int bwd_chunk, int num_tiles, int tiles_x,
+                                       int tile_w, int tile_h, int oriented, float min_r,
                                        float margin2, float neg_inv_2sigma2,
                                        float alpha_cap, void* stream) {
   const DiffParams p = make_params(tiles_x, tile_w, tile_h, min_r, margin2,
                                    neg_inv_2sigma2, alpha_cap);
   const int threads = tile_w * tile_h;
+  if (!valid_chunk(bwd_chunk)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (oriented)
-    diff_fwd_kernel<true><<<num_tiles, threads, 0, s>>>(
-        offsets, pair_rank, planes, tile_color, tile_alpha, tile_depth, p);
-  else
-    diff_fwd_kernel<false><<<num_tiles, threads, 0, s>>>(
-        offsets, pair_rank, planes, tile_color, tile_alpha, tile_depth, p);
+#define TBD_FWD(O, C)                                                                       \
+  diff_fwd_kernel<O, C><<<num_tiles, threads, 0, s>>>(offsets, pair_rank, planes, tile_color, \
+                                                      tile_alpha, tile_depth, t_start, p)
+  const int bc = t_start != nullptr ? bwd_chunk : 0;
+  if (oriented) {
+    if (bc == 0) TBD_FWD(true, 0);
+    else if (bc == 8) TBD_FWD(true, 8);
+    else if (bc == 16) TBD_FWD(true, 16);
+    else TBD_FWD(true, 32);
+  } else {
+    if (bc == 0) TBD_FWD(false, 0);
+    else if (bc == 8) TBD_FWD(false, 8);
+    else if (bc == 16) TBD_FWD(false, 16);
+    else TBD_FWD(false, 32);
+  }
+#undef TBD_FWD
   return static_cast<int>(cudaGetLastError());
 }
 
 // Backward: per-pair gradient rows.  Inputs as the forward's plus
-// pair_slot (P) int32, chunk_off (T+1) int32 (tile t's first 32-record
-// chunk among all tiles' chunks: the exclusive cumsum of ceil(count / 32))
-// and the cotangents g_color (T, tp, 3), g_alpha and g_depth (T, tp);
-// scratch holds 2 * tp floats per chunk.  Writes row pair_slot[i] of
+// pair_slot (P) int32, the cotangents g_color (T, tp, 3), g_alpha and
+// g_depth (T, tp), and the forward's t_start for the same bwd_chunk;
+// planes must be 16-byte aligned.  Writes row pair_slot[i] of
 // grad_slots (cap * N, nf) float32 for every pair i of every run (the
-// caller zeroes it first).  Returns cudaGetLastError().
+// caller zeroes it first).  Returns the CUDA error code.
 extern "C" int tile_blend_diff_backward(
-    const int* offsets, const int* pair_rank, const int* pair_slot, const int* chunk_off,
-    const float* planes, const float* g_color, const float* g_alpha, const float* g_depth,
-    float* scratch, float* grad_slots, int num_tiles, int tiles_x, int tile_w, int tile_h,
-    int oriented, float min_r, float margin2, float neg_inv_2sigma2, float alpha_cap,
-    void* stream) {
+    const int* offsets, const int* pair_rank, const int* pair_slot, const float* planes, const float* g_color, const float* g_alpha, const float* g_depth,
+    const float* t_start, float* grad_slots, int bwd_chunk, int num_tiles, int tiles_x,
+    int tile_w, int tile_h, int oriented, float min_r, float margin2, float neg_inv_2sigma2,
+    float alpha_cap, void* stream) {
   const DiffParams p = make_params(tiles_x, tile_w, tile_h, min_r, margin2,
                                    neg_inv_2sigma2, alpha_cap);
   const int threads = tile_w * tile_h;
-  const int nr = oriented ? 11 : 8;
-  const size_t smem = static_cast<size_t>(threads / 32) * kBwdChunk * nr * sizeof(float);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TBD_BWD(O, M)                                                                    \
-  diff_bwd_kernel<O, M><<<num_tiles, threads, smem, s>>>(offsets, pair_rank, pair_slot, \
-                                                          chunk_off, planes, g_color,    \
-                                                          g_alpha, g_depth, scratch,     \
-                                                          grad_slots, p)
-  if (oriented) {
-    if (threads <= 256) TBD_BWD(true, 256);
-    else if (threads <= 512) TBD_BWD(true, 512);
-    else TBD_BWD(true, 1024);
-  } else {
-    if (threads <= 256) TBD_BWD(false, 256);
-    else if (threads <= 512) TBD_BWD(false, 512);
-    else TBD_BWD(false, 1024);
+  if (!valid_chunk(bwd_chunk) || (reinterpret_cast<uintptr_t>(planes) & 15u) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef TBD_BWD
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem = bwd_smem(threads, oriented, bwd_chunk);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = dispatch_bwd(oriented, threads, [&](auto kernel) {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+    }
+    kernel<<<num_tiles, threads, smem, s>>>(offsets, pair_rank, pair_slot, planes,
+                                            g_color, g_alpha, g_depth, t_start, grad_slots,
+                                            bwd_chunk, p);
+    return cudaGetLastError();
+  });
+  return static_cast<int>(err);
+}
+
+// What the backward's instantiation gets at this tile shape and chunk:
+// out[0] registers per thread, out[1] resident CTAs per SM, out[2] SMs,
+// out[3] dynamic shared memory in bytes.  Host pointer.
+extern "C" int tile_blend_diff_launch_info(int oriented, int tile_w, int tile_h,
+                                           int bwd_chunk, int* out) {
+  const int threads = tile_w * tile_h;
+  const size_t smem = bwd_smem(threads, oriented, bwd_chunk);
+  const cudaError_t err = dispatch_bwd(oriented, threads, [&](auto kernel) {
+    cudaError_t e = cudaSuccess;
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+    }
+    cudaFuncAttributes attr;
+    if ((e = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return e;
+    int device = 0;
+    if ((e = cudaGetDevice(&device)) != cudaSuccess) return e;
+    if ((e = cudaDeviceGetAttribute(&out[2], cudaDevAttrMultiProcessorCount, device))
+        != cudaSuccess) return e;
+    out[0] = attr.numRegs;
+    out[3] = static_cast<int>(smem);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel, threads, smem);
+  });
+  return static_cast<int>(err);
 }

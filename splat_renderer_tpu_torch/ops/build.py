@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C entry point and is compiled at first
 use into `splat_renderer_tpu_torch/_build/` (listed in .gitignore), under a
-file name keyed by a hash of the source and the flags, so an edited source
+file name keyed by a hash of the source, the `csrc/*.cuh` headers (included
+by name from the source's own directory) and the flags, so an edited source
 rebuilds and an unchanged one loads in milliseconds.  Building needs the
 CUDA toolkit (`nvcc` under $CUDA_HOME, /usr/local/cuda, or on PATH); nothing
 here runs when the package is imported.
@@ -56,6 +57,9 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     """Where `csrc/<name>.cu` builds to: keyed by its source and flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers the sources share: an edited header rebuilds every library
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

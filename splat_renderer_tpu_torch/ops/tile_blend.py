@@ -11,9 +11,15 @@ Two schedules compute the same outputs bit for bit:
 - `"tile"`: one CTA per tile (`tile_blend_kernel`), which replaces the JAX
   package's Pallas kernels `ops/tile_blend.py::_make_tile_kernel` and
   `_make_kernel`;
-- `"tile_xp"`: a persistent grid over the nonempty tiles that prefetches the
-  next tile's first records under the current tile's compute
-  (`tile_blend_xp_kernel`), which replaces `_make_tile_kernel_xp`.
+- `"tile_xp"`: a persistent grid over the nonempty tiles, heaviest first,
+  that keeps the next chunk's records (the next tile's first included) in
+  flight under the current chunk's compute (`tile_blend_xp_kernel`), which
+  replaces `_make_tile_kernel_xp`.
+
+Both kernels cull per warp: a warp covers an 8x4 pixel block and walks only
+the records whose support can reach it.  `cull_live_plain` is that test in
+plain PyTorch, `warp_pixels` the kernels' pixel-to-lane mapping; the tests
+hold them against the twin's alphas, nothing on the card's path calls them.
 
 `with_depth=True` (the G-buffer stream, `bin_packed_words(with_depth=True)`)
 adds a third output: the premultiplied depth sum under the colour's weights.
@@ -36,6 +42,7 @@ import torch
 
 from ..config import RenderConfig
 from ..render.binning import Binned
+from .._torch_util import maximum, minimum
 from ..render.blend import segmented_exclusive_product, splat_alpha_planes
 from ..render.packing import (
     INV_ANGLE_SCALE,
@@ -46,6 +53,7 @@ from ..render.packing import (
 )
 
 MAX_TILE_PIXELS = 1024  # one thread per pixel, one CTA per tile
+CULL_SLACK = 1.001  # csrc/warp_cull.cuh kCullSlack: the oriented culling bound's widening
 
 _INT32_INPUTS = ("offsets", "pair_rank", "rec_pos", "rec_ro", "rec_rgb")
 SCHEDULES = ("tile", "tile_xp")
@@ -70,17 +78,112 @@ def _kernel_fn():
             + [ctypes.c_float] * 10 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
+        lib.tile_blend_launch_info.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.tile_blend_launch_info.restype = ctypes.c_int
     return fn
 
 
+def launch_info(cfg: RenderConfig, schedule: str = "tile", with_depth: bool = False) -> dict:
+    """What the kernel of (cfg's profile, schedule, with_depth) gets on the
+    current CUDA device at cfg's tile shape: registers per thread, resident
+    CTAs per SM (the occupancy query's answer), SMs, dynamic shared memory
+    bytes, and the persistent schedule's full grid."""
+    _kernel_fn()
+    from .build import load_library
+
+    out = (ctypes.c_int * 4)()
+    err = load_library("tile_blend").tile_blend_launch_info(
+        int(cfg.oriented), _shape_code(cfg), int(with_depth), int(schedule == "tile_xp"),
+        cfg.tile_w, cfg.tile_h, out)
+    if err != 0:
+        raise RuntimeError(f"tile_blend_launch_info failed: CUDA error {err}")
+    regs, per_sm, sms, smem = out
+    return dict(registers=regs, ctas_per_sm=per_sm, sms=sms, smem_bytes=smem,
+                xp_grid=per_sm * sms)
+
+
 def nonempty_tiles(counts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(tile_list (T,) int32, n_list (1,) int32): the tiles with records
-    first, in tile order, and their number, both on the device and made
-    without a host synchronisation (a stable sort on "is empty")."""
-    empty = counts <= 0
-    tile_list = torch.sort(empty.to(torch.uint8), stable=True).indices.to(torch.int32)
-    n_list = (counts.numel() - empty.sum(dtype=torch.int32)).reshape(1).to(torch.int32)
+    """(tile_list (T,) int32, n_list (1,) int32): the tiles by record count,
+    heaviest first (ties in tile order), so the tiles with records come
+    first, and their number; both on the device and made without a host
+    synchronisation (one stable sort)."""
+    tile_list = torch.sort(counts, descending=True, stable=True).indices.to(torch.int32)
+    n_list = (counts > 0).sum(dtype=torch.int32).reshape(1)
     return tile_list, n_list
+
+
+def warp_pixels(cfg: RenderConfig) -> torch.Tensor:
+    """(warps, 32) int64: the tile-local pixel index (row-major, y * tile_w
+    + x) of every lane, as the kernels map them (csrc/warp_cull.cuh
+    `tile_pixel`): an 8x4
+    block per warp where tile_w is a multiple of 8 and tile_h of 4, else 32
+    consecutive pixels, lanes past the last pixel shadowing it."""
+    tw, th = cfg.tile_w, cfg.tile_h
+    tid = torch.arange((tw * th + 31) // 32 * 32)
+    warp, lane = tid // 32, tid % 32
+    if tw % 8 == 0 and th % 4 == 0:
+        lx = (warp % (tw // 8)) * 8 + lane % 8
+        ly = (warp // (tw // 8)) * 4 + lane // 8
+        pix = ly * tw + lx
+    else:
+        pix = torch.clamp(tid, max=tw * th - 1)
+    return pix.reshape(-1, 32)
+
+
+def warp_rects(cfg: RenderConfig) -> torch.Tensor:
+    """(warps, 4) float32: each warp's rectangle of tile-local pixel centres
+    (x0, x1, y0, y1)."""
+    pix = warp_pixels(cfg)
+    x = (pix % cfg.tile_w).to(torch.float32) + 0.5
+    y = (pix // cfg.tile_w).to(torch.float32) + 0.5
+    return torch.stack([x.amin(1), x.amax(1), y.amin(1), y.amax(1)], dim=1)
+
+
+def cull_live_plain(
+    cx: torch.Tensor,
+    cy: torch.Tensor,
+    cut2: torch.Tensor,
+    rr: torch.Tensor,
+    x0: torch.Tensor,
+    x1: torch.Tensor,
+    y0: torch.Tensor,
+    y1: torch.Tensor,
+    oriented: bool,
+    quad: bool = False,
+) -> torch.Tensor:
+    """The kernels' warp-level culling test (csrc/warp_cull.cuh `cull_bound`
+    and `cull_live`, which both blend sources include) in plain PyTorch
+    (float32, the same operations in the same order): False where a record with centre
+    (cx, cy) and staged cutoff `cut2` (`staged_cut2`; rr = max(ratio, 1e-3),
+    read only when oriented) can give no pixel centre of [x0, x1] x [y0, y1]
+    (screen coordinates) a nonzero alpha.  Isotropic: the nearest point's
+    squared distance against the cutoff, exact.  Oriented: against
+    cut2 / min(1, rr)^2, widened by CULL_SLACK (twice that for the quad)."""
+    dxn = maximum(torch.maximum(x0 - cx, cx - x1), 0.0)
+    dyn = maximum(torch.maximum(y0 - cy, cy - y1), 0.0)
+    if oriented:
+        rrm = minimum(rr, 1.0)
+        bound = (cut2 / (rrm * rrm)) * CULL_SLACK
+        if quad:
+            bound = bound * 2.0
+        return dxn * dxn + dyn * dyn <= bound
+    if quad:
+        return (dxn * dxn <= cut2) & (dyn * dyn <= cut2)
+    return dxn * dxn + dyn * dyn <= cut2
+
+
+def staged_cut2(radius: torch.Tensor, opacity: torch.Tensor, ratio: torch.Tensor,
+                cfg: RenderConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cut2, rr) as the kernels stage them from unpacked words (csrc
+    `decode_store`): margin^2 scale^2 (Gaussian) or scale^2 (opaque), and -1
+    for a record whose alpha is 0 everywhere (below min_screen_radius, or
+    opacity 0)."""
+    rr = maximum(ratio, 1e-3) if cfg.oriented else torch.ones_like(ratio)
+    scale = radius * rr if cfg.oriented else radius
+    scale2 = scale * scale
+    cut2 = scale2 if cfg.opaque else (cfg.bounds_margin * cfg.bounds_margin) * scale2
+    dead = ~(radius >= cfg.min_screen_radius) | ~(opacity > 0.0)
+    return torch.where(dead, -1.0, cut2), rr
 
 
 def blend_tiles(

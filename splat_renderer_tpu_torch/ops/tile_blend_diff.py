@@ -17,12 +17,19 @@ under the same blend weights; gradients reach every plane, depth through
 its value only (the compositing order is structure), and isotropic
 profiles give angle and ratio zero gradients.
 
-The backward kernel computes the blend adjoint from back-to-front suffix
+The backward kernel computes the blend adjoint from back-to-front
 recurrences, without the TPU kernel's division by 1 - alpha (see the csrc
-header).  Gradient routing is deterministic: the backward kernel writes each pair's
-row at its pre-sort slot `c * n + rank` (unique, so an assignment), the cap
-slots of a record are summed by a reshape, and ranks go back to input order
-through `src`.  No float atomics anywhere, so two runs give the same bits.
+header), in one pass over the pair stream: when a gradient will be asked
+for, the forward kernel also leaves each pixel's transmittance at the start
+of every backward chunk (`bwd_chunk(cfg)` records), and the backward walks a
+tile's chunks last to first from those.  `blend_adjoint_plain` is that
+recurrence in plain PyTorch; the tests hold it against autograd and the JAX
+package, nothing on the card's path calls it.  Gradient routing is
+deterministic: the
+backward kernel writes each pair's row at its pre-sort slot `c * n + rank`
+(unique, so an assignment), the cap slots of a record are summed by a
+reshape, and ranks go back to input order through `src`.  No float atomics
+anywhere, so two runs give the same bits.
 """
 
 from __future__ import annotations
@@ -39,7 +46,9 @@ from ..render.blend import ellipse_cos_sin, segmented_exclusive_product
 
 ALPHA_CAP = 1.0 - 1e-7  # shared with render/compositor.py's differentiable mode
 MAX_TILE_PIXELS = 1024  # one thread per pixel, one CTA per tile
-_BWD_CHUNK = 32  # records per backward chunk (csrc kBwdChunk)
+# The backward keeps T_i and shape_i of a chunk's evaluations in shared
+# memory, 8 bytes per (record, pixel): this budget fixes the chunk.
+_BWD_STATE_BYTES = 64 * 1024
 _PAIR_CHUNK = 1024  # pairs per step of the twin's walk over the pair stream
 
 _PLANE_NAMES = ("cx", "cy", "radius", "opacity", "r", "g", "b", "angle", "ratio", "depth")
@@ -53,12 +62,38 @@ def _kernel_fns():
     lib = load_library("tile_blend_diff")
     fwd, bwd = lib.tile_blend_diff_forward, lib.tile_blend_diff_backward
     if fwd.argtypes is None:
-        tail = [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
-        fwd.argtypes = [ctypes.c_void_p] * 6 + tail
+        tail = [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
+        fwd.argtypes = [ctypes.c_void_p] * 7 + tail
         fwd.restype = ctypes.c_int
-        bwd.argtypes = [ctypes.c_void_p] * 10 + tail
+        bwd.argtypes = [ctypes.c_void_p] * 9 + tail
         bwd.restype = ctypes.c_int
+        lib.tile_blend_diff_launch_info.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.tile_blend_diff_launch_info.restype = ctypes.c_int
     return fwd, bwd
+
+
+def bwd_chunk(cfg: RenderConfig) -> int:
+    """Records per backward chunk at cfg's tile shape: 32 (one mask word)
+    for tiles of up to 256 pixels, 16 up to 512, 8 above."""
+    fit = _BWD_STATE_BYTES // (8 * cfg.tile_pixels)
+    return 32 if fit >= 32 else 16 if fit >= 16 else 8
+
+
+def launch_info(cfg: RenderConfig) -> dict:
+    """What the backward kernel gets on the current CUDA device at cfg's
+    profile and tile shape: registers per thread, resident CTAs per SM (the
+    occupancy query's answer), SMs, dynamic shared memory bytes, its chunk."""
+    _kernel_fns()
+    from .build import load_library
+
+    out = (ctypes.c_int * 4)()
+    err = load_library("tile_blend_diff").tile_blend_diff_launch_info(
+        int(cfg.oriented), cfg.tile_w, cfg.tile_h, bwd_chunk(cfg), out)
+    if err != 0:
+        raise RuntimeError(f"tile_blend_diff_launch_info failed: CUDA error {err}")
+    regs, per_sm, sms, smem = out
+    return dict(registers=regs, ctas_per_sm=per_sm, sms=sms, smem_bytes=smem,
+                bwd_chunk=bwd_chunk(cfg))
 
 
 def _check_launchable(binned: Binned, cfg: RenderConfig) -> torch.device:
@@ -82,18 +117,37 @@ def _check_launchable(binned: Binned, cfg: RenderConfig) -> torch.device:
 
 
 def _scalars(cfg: RenderConfig):
-    return (cfg.num_tiles, cfg.tiles_x, cfg.tile_w, cfg.tile_h, int(cfg.oriented),
+    return (bwd_chunk(cfg), cfg.num_tiles, cfg.tiles_x, cfg.tile_w, cfg.tile_h, int(cfg.oriented),
             cfg.min_screen_radius, cfg.bounds_margin * cfg.bounds_margin,
             -0.5 / (cfg.sigma * cfg.sigma), ALPHA_CAP)
 
 
-def diff_forward(binned: Binned, cfg: RenderConfig) -> TileOutputs:
+def _aligned_planes(binned: Binned) -> torch.Tensor:
+    """The record planes as the kernels read them: contiguous, and 16-byte
+    aligned for the backward's asynchronous row copies."""
+    planes = binned["planes"].detach().contiguous()
+    return planes if planes.data_ptr() % 16 == 0 else planes.clone()
+
+
+def diff_forward(
+    binned: Binned, cfg: RenderConfig, residuals: bool = False
+) -> Tuple[torch.Tensor, ...]:
     """Launch the forward kernel on `bin_planes_diff`'s stream (CUDA
     tensors only).  Returns (tile_color (T, tp, 3), tile_alpha (T, tp),
-    tile_depth (T, tp)); tiles with no records come out as 0."""
+    tile_depth (T, tp)); tiles with no records come out as 0.
+
+    residuals: a fourth output, what `diff_backward` reads: t_start (rows,
+    tp) float32, every pixel's transmittance at the start of each chunk of
+    `bwd_chunk(cfg)` records; tile t's chunks start at row
+    offsets[t] // bwd_chunk + t, which needs no table and no host sync."""
     device = _check_launchable(binned, cfg)
     t, tp = cfg.num_tiles, cfg.tile_pixels
-    planes = binned["planes"].detach().contiguous()
+    planes = _aligned_planes(binned)
+    t_start = None
+    if residuals:
+        # at most n * cap pairs: rows for every tile's chunks (csrc chunk_row)
+        rows = (planes.shape[0] * cfg.tiles_per_splat_cap) // bwd_chunk(cfg) + t + 1
+        t_start = torch.empty((rows, tp), dtype=torch.float32, device=device)
     tile_color = torch.empty((t, tp, 3), dtype=torch.float32, device=device)
     tile_alpha = torch.empty((t, tp), dtype=torch.float32, device=device)
     tile_depth = torch.empty((t, tp), dtype=torch.float32, device=device)
@@ -102,41 +156,46 @@ def diff_forward(binned: Binned, cfg: RenderConfig) -> TileOutputs:
         err = fwd(
             binned["offsets"].data_ptr(), binned["pair_rank"].data_ptr(),
             planes.data_ptr(), tile_color.data_ptr(), tile_alpha.data_ptr(),
-            tile_depth.data_ptr(), *_scalars(cfg),
+            tile_depth.data_ptr(),
+            None if t_start is None else t_start.data_ptr(), *_scalars(cfg),
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"tile_blend_diff_forward launch failed: CUDA error {err}")
     diff_forward.launches += 1
-    return tile_color, tile_alpha, tile_depth
+    outs = (tile_color, tile_alpha, tile_depth)
+    return outs + (t_start,) if residuals else outs
 
 
 diff_forward.launches = 0
 
 
-def diff_backward(binned: Binned, cfg: RenderConfig, cotangents: TileOutputs) -> torch.Tensor:
+def diff_backward(
+    binned: Binned, cfg: RenderConfig, cotangents: TileOutputs, t_start: torch.Tensor
+) -> torch.Tensor:
     """Launch the backward kernel (CUDA tensors only) and route its
     per-pair rows to input order.  `cotangents` are the gradients of the
-    forward's (tile_color, tile_alpha, tile_depth).  Returns (N, nf)
-    gradients in diff_fields order."""
+    forward's (tile_color, tile_alpha, tile_depth); `t_start` is the fourth
+    output of `diff_forward(binned, cfg, residuals=True)` on the same
+    stream.  Returns (N, nf) gradients in diff_fields order."""
     device = _check_launchable(binned, cfg)
     n, nf = binned["planes"].shape
-    cap, t, tp = cfg.tiles_per_splat_cap, cfg.num_tiles, cfg.tile_pixels
-    planes = binned["planes"].detach().contiguous()
+    cap = cfg.tiles_per_splat_cap
+    rows = (n * cap) // bwd_chunk(cfg) + cfg.num_tiles + 1
+    if (t_start.device != device or t_start.dtype != torch.float32
+            or t_start.shape != (rows, cfg.tile_pixels) or not t_start.is_contiguous()):
+        raise ValueError(
+            f"t_start must be the ({rows}, {cfg.tile_pixels}) float32 residuals of "
+            "diff_forward(binned, cfg, residuals=True) on this stream")
+    planes = _aligned_planes(binned)
     cots = [c.to(torch.float32).contiguous() for c in cotangents]
-    # each tile's first 32-record chunk, and room for every chunk's (R, Q)
-    # per pixel: sum_t ceil(count_t / 32) <= n * cap / 32 + t, no host sync
-    chunk_off = torch.zeros(t + 1, dtype=torch.int32, device=device)
-    chunk_off[1:] = torch.cumsum((binned["counts"] + (_BWD_CHUNK - 1)) // _BWD_CHUNK, 0)
-    scratch = torch.empty(((cap * n) // _BWD_CHUNK + t + 1) * 2 * tp,
-                          dtype=torch.float32, device=device)
     grad_slots = torch.zeros((cap * n, nf), dtype=torch.float32, device=device)
     _, bwd = _kernel_fns()
     with torch.cuda.device(device):
         err = bwd(
             binned["offsets"].data_ptr(), binned["pair_rank"].data_ptr(),
-            binned["pair_slot"].data_ptr(), chunk_off.data_ptr(), planes.data_ptr(),
-            *(c.data_ptr() for c in cots), scratch.data_ptr(),
+            binned["pair_slot"].data_ptr(), planes.data_ptr(),
+            *(c.data_ptr() for c in cots), t_start.data_ptr(),
             grad_slots.data_ptr(), *_scalars(cfg),
             torch.cuda.current_stream(device).cuda_stream,
         )
@@ -157,12 +216,16 @@ class _BlendPlanes(torch.autograd.Function):
     def forward(ctx, cfg, *plane_args):
         binned = bin_planes_diff(dict(zip(_PLANE_NAMES, plane_args)), cfg)
         ctx.cfg, ctx.binned = cfg, binned
-        return diff_forward(binned, cfg)
+        # the backward's residuals only when a gradient can be asked for
+        need = any(ctx.needs_input_grad)
+        outs = diff_forward(binned, cfg, residuals=need)
+        ctx.t_start = outs[3] if need else None
+        return outs[:3]
 
     @staticmethod
     def backward(ctx, g_color, g_alpha, g_depth):
         cfg = ctx.cfg
-        grads = diff_backward(ctx.binned, cfg, (g_color, g_alpha, g_depth))
+        grads = diff_backward(ctx.binned, cfg, (g_color, g_alpha, g_depth), ctx.t_start)
         cols = grads.unbind(1)
         zero = torch.zeros_like(cols[0])
         g_ang, g_ratio = (cols[7], cols[8]) if cfg.oriented else (zero, zero)
@@ -288,3 +351,115 @@ def blend_binned_plain(binned: Binned, cfg: RenderConfig) -> TileOutputs:
         ends = torch.cat([~same, same.new_ones(1)])
         trans = trans.index_put((tiles[ends],), (carry * t_local * q)[ends])
     return color, 1.0 - trans, depth_acc
+
+
+def blend_adjoint_plain(
+    binned: Binned, cfg: RenderConfig, cotangents: TileOutputs, chunk: int = 32
+) -> torch.Tensor:
+    """The backward kernel's recurrence in plain float32 PyTorch: (N, nf)
+    gradients of sum(outputs * cotangents) with respect to
+    binned["planes"], in rank order.
+
+    Per tile: the forward's sequential products leave every pixel's T at
+    the start of each `chunk` records; the chunks are walked last to first
+    with R (what follows a record, seen through it) and Q (the product of
+    1 - a behind it) carried along; inside a chunk T_i is rebuilt forward
+    from the chunk's start and the adjoint dL/da_i = T_i (w_i - R_i + gA
+    Q_i) runs back to front, chained to the fields term for term as
+    csrc/tile_blend_diff.cu does.  T_i is the same product in the same
+    order whatever the chunk, so the result does not depend on it.  A
+    Python loop over every record of every tile: for tests at small sizes.
+    """
+    planes = binned["planes"].detach()
+    nf = planes.shape[1]
+    g_color, g_alpha, g_depth = (c.to(torch.float32) for c in cotangents)
+    tp, tw = cfg.tile_pixels, cfg.tile_w
+    margin2 = cfg.bounds_margin * cfg.bounds_margin
+    neg = -0.5 / (cfg.sigma * cfg.sigma)
+    lane = torch.arange(tp, device=planes.device)
+    lx = (lane % tw).to(torch.float32) + 0.5
+    ly = (lane // tw).to(torch.float32) + 0.5
+    offsets = binned["offsets"].tolist()
+    grads = torch.zeros_like(planes)
+    for t in range(cfg.num_tiles):
+        lo, hi = offsets[t], offsets[t + 1]
+        if hi == lo:
+            continue
+        ranks = binned["pair_rank"][lo:hi].to(torch.int64)
+        rec = planes.index_select(0, ranks)
+        col = lambda k: rec[:, k:k + 1]  # noqa: E731
+        r, op, d = col(2), col(3), col(nf - 1)
+        dx = (float((t % cfg.tiles_x) * tw) + lx)[None, :] - col(0)
+        dy = (float((t // cfg.tiles_x) * cfg.tile_h) + ly)[None, :] - col(1)
+        if cfg.oriented:
+            ratio = col(8)
+            rr = maximum(ratio, 1e-3)
+            ca, sa = ellipse_cos_sin(col(7))
+            u = ca * dx + sa * dy
+            vr = (-sa * dx + ca * dy) * rr
+            dist2 = u * u + vr * vr
+            scale = r * rr
+        else:
+            dist2 = dx * dx + dy * dy
+            scale = r
+        scale2 = scale * scale
+        inv_s2 = rdiv(1.0, maximum(scale2, 1e-12))
+        inside = (r >= cfg.min_screen_radius) & (dist2 <= margin2 * scale2)
+        nd2 = dist2 * inv_s2
+        shape = torch.where(inside, torch.exp(neg * nd2), 0.0)
+        a_raw = op * shape
+        a = minimum(a_raw, ALPHA_CAP)  # (m, tp)
+        m = a.shape[0]
+        gc, ga_out, gd = g_color[t], g_alpha[t], g_depth[t]
+        w_pan = ((col(4) * gc[:, 0] + col(5) * gc[:, 1]) + col(6) * gc[:, 2]) + d * gd
+
+        # the forward's residual: T at the start of every chunk
+        trans = torch.ones(tp, dtype=torch.float32, device=planes.device)
+        t_start = []
+        for i in range(m):
+            if i % chunk == 0:
+                t_start.append(trans)
+            trans = trans * (1.0 - a[i])
+        t_i = torch.empty_like(a)
+        r_i, q_i = torch.empty_like(a), torch.empty_like(a)
+        r_acc, q_acc = torch.zeros_like(trans), torch.ones_like(trans)
+        for c in range(len(t_start) - 1, -1, -1):
+            i0, i1 = c * chunk, min(m, (c + 1) * chunk)
+            trans = t_start[c]
+            for i in range(i0, i1):  # T_i forward inside the chunk
+                t_i[i] = trans
+                trans = trans * (1.0 - a[i])
+            for i in range(i1 - 1, i0 - 1, -1):  # R_i, Q_i back to front
+                r_i[i], q_i[i] = r_acc, q_acc
+                r_acc = w_pan[i] * a[i] + (1.0 - a[i]) * r_acc
+                q_acc = q_acc * (1.0 - a[i])
+
+        g_a = t_i * ((w_pan - r_i) + ga_out * q_i)
+        g_prod = torch.where(inside & (a_raw < ALPHA_CAP), g_a, 0.0)
+        g_nd2 = ((g_prod * op) * neg) * shape
+        g_dist2 = g_nd2 * inv_s2
+        at = torch.where(inside, a * t_i, 0.0)
+        s2 = (g_nd2 * nd2).sum(1, keepdim=True)
+        alive = (scale2 > 1e-12).to(torch.float32)
+        rows = torch.zeros((m, nf), dtype=torch.float32, device=planes.device)
+        if cfg.oriented:
+            g_u = (g_dist2 * 2.0) * u
+            g_vr = (g_dist2 * 2.0) * vr
+            rows[:, 0:1] = (-(g_u * ca + g_vr * (-sa * rr))).sum(1, keepdim=True)
+            rows[:, 1:2] = (-(g_u * sa + g_vr * (ca * rr))).sum(1, keepdim=True)
+            s8 = (g_u * dx + (g_vr * dy) * rr).sum(1, keepdim=True)
+            s9 = (g_u * dy - (g_vr * dx) * rr).sum(1, keepdim=True)
+            s10 = (g_vr * vr).sum(1, keepdim=True)
+            rows[:, 7:8] = -s8 * sa + s9 * ca
+            g_rr = s10 / rr + ((s2 * -2.0) * alive) / rr
+            rows[:, 8:9] = torch.where(ratio >= 1e-3, g_rr, 0.0)
+        else:
+            rows[:, 0:1] = ((g_dist2 * -2.0) * dx).sum(1, keepdim=True)
+            rows[:, 1:2] = ((g_dist2 * -2.0) * dy).sum(1, keepdim=True)
+        rows[:, 2:3] = ((s2 * -2.0) * alive) / maximum(r, 1e-9)
+        rows[:, 3] = (g_prod * shape).sum(1)
+        for k in range(3):
+            rows[:, 4 + k] = (gc[:, k] * at).sum(1)
+        rows[:, nf - 1] = (gd * at).sum(1)
+        grads.index_add_(0, ranks, rows)
+    return grads

@@ -222,3 +222,124 @@ def test_kernel_method_rejects_opaque_and_unknown_methods():
     planes = [torch.zeros(4, device="meta") for _ in range(10)]
     with pytest.raises(ValueError, match="no differentiable tile-blend kernel"):
         blend_planes(dataclasses.replace(cfg, opaque=False), *planes)
+
+
+# ---- the backward kernel's one-pass recurrence, in its plain mirror ----
+
+def _random_stream(prof, n=520, seed=0, width=64, height=48, near_centre=False):
+    """A `bin_planes_diff` stream of random continuous planes over (and just
+    beyond) a small viewport, a third of the opacities exactly 1, and tile
+    cotangents.  near_centre: records 0-5 are opacity-1 splats whose centres
+    lie within 1e-4 px of a pixel centre, stacked front to back: the input
+    on which a suffix written as `U_total - prefix` over `1 - a` fails."""
+    cfg = tpt.RenderConfig(width=width, height=height, tiles_per_splat_cap=16, **prof)
+    rng = np.random.default_rng(seed)
+    cols = [
+        rng.uniform(-6, width + 6, n), rng.uniform(-6, height + 6, n),
+        rng.uniform(0.4, 5.0, n), np.minimum(rng.uniform(0.3, 1.4, n), 1.0),
+        rng.uniform(0, 1, n), rng.uniform(0, 1, n), rng.uniform(0, 1, n),
+        rng.uniform(-np.pi, np.pi, n), rng.uniform(0.05, 1.0, n), rng.uniform(1.0, 10.0, n),
+    ]
+    if near_centre:
+        cols[0][:6] = 20.5 + rng.uniform(-1e-4, 1e-4, 6)
+        cols[1][:6] = 17.5 + rng.uniform(-1e-4, 1e-4, 6)
+        cols[2][:6] = rng.uniform(2.0, 4.0, 6)
+        cols[3][:6] = 1.0
+        cols[9][:6] = np.linspace(1.5, 6.0, 6)
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import _PLANE_NAMES
+
+    planes = {k: torch.tensor(c, dtype=torch.float32) for k, c in zip(_PLANE_NAMES, cols)}
+    binned = bin_planes_diff(planes, cfg)
+    g = torch.Generator().manual_seed(seed + 1)
+    t, tp = cfg.num_tiles, cfg.tile_pixels
+    cots = [torch.rand(s, generator=g) - 0.5 for s in ((t, tp, 3), (t, tp), (t, tp))]
+    return cfg, binned, cots
+
+
+def _autograd_rows(cfg, binned, cots):
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import blend_binned_plain
+
+    twin = dict(binned, planes=binned["planes"].detach().clone().requires_grad_(True))
+    outs = blend_binned_plain(twin, cfg)
+    loss = sum((o * c).sum() for o, c in zip(outs, cots))
+    (grad,) = torch.autograd.grad(loss, twin["planes"])
+    return grad
+
+
+@pytest.mark.parametrize("near_centre", [False, True], ids=["random", "opacity1_on_a_pixel_centre"])
+@pytest.mark.parametrize("profile", sorted(PROFILES))
+def test_adjoint_mirror_matches_autograd(profile, near_centre):
+    """Chunk-start T from the forward, R and Q back to front: every field's
+    gradient within the kernels' gate of the twin's autograd, and the same
+    bits whatever the chunk."""
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import blend_adjoint_plain
+
+    prof, _, _, tol = PROFILES[profile]
+    cfg, binned, cots = _random_stream(prof, near_centre=near_centre)
+    assert int(binned["counts"].max()) > 64  # more than two chunks of 32 in a tile
+    want = _autograd_rows(cfg, binned, cots)
+    got = {c: blend_adjoint_plain(binned, cfg, cots, chunk=c) for c in (32, 16, 7)}
+    assert torch.isfinite(got[32]).all()
+    for k, name in enumerate(diff_fields(cfg)):
+        scale = float(want[:, k].abs().max()) + 1e-12
+        rel = float((got[32][:, k] - want[:, k]).abs().max()) / scale
+        assert rel < tol, f"{name}: max-relative {rel:.2e}"
+    assert float(got[32].abs().max()) > 0
+    assert torch.equal(got[32], got[16]) and torch.equal(got[32], got[7])
+
+
+class _BlendPlanesMirror(torch.autograd.Function):
+    """The twin's forward with `blend_adjoint_plain` as its backward."""
+
+    @staticmethod
+    def forward(ctx, cfg, chunk, *plane_args):
+        from splat_renderer_tpu_torch.ops.tile_blend_diff import _PLANE_NAMES, blend_binned_plain
+
+        binned = bin_planes_diff(dict(zip(_PLANE_NAMES, plane_args)), cfg)
+        ctx.cfg, ctx.chunk, ctx.binned = cfg, chunk, binned
+        return blend_binned_plain(binned, cfg)
+
+    @staticmethod
+    def backward(ctx, g_color, g_alpha, g_depth):
+        from splat_renderer_tpu_torch.ops.tile_blend_diff import blend_adjoint_plain
+
+        cfg, binned = ctx.cfg, ctx.binned
+        per_rank = blend_adjoint_plain(binned, cfg, (g_color, g_alpha, g_depth), ctx.chunk)
+        grads = torch.empty_like(per_rank)
+        grads[binned["src"]] = per_rank  # rank order -> input order
+        cols = grads.unbind(1)
+        zero = torch.zeros_like(cols[0])
+        g_ang, g_ratio = (cols[7], cols[8]) if cfg.oriented else (zero, zero)
+        return (None, None) + cols[:7] + (g_ang, g_ratio, cols[-1])
+
+
+@pytest.mark.parametrize("chunk", [32, 7])
+def test_adjoint_mirror_matches_jax_pallas(case, chunk, monkeypatch):
+    """The whole differentiable render with the mirror as the blend's
+    backward, against the JAX package's Pallas gradients."""
+    from splat_renderer_tpu_torch.ops import tile_blend_diff as tbd
+
+    monkeypatch.setattr(tbd, "blend_planes",
+                        lambda cfg, *planes: _BlendPlanesMirror.apply(cfg, chunk, *planes))
+    spl = splats_from_numpy(case["np_splats"], "cpu")
+    theta = {k: spl[k].clone().requires_grad_(True) for k in case["fields"]}
+    img = render_diff(dict(spl, **theta), case["tcam"], case["tc"], method="kernel")
+    np.testing.assert_allclose(img.detach().numpy(), case["img_pallas"], atol=IMG_TOL, rtol=0)
+    loss = torch.mean((img - torch.from_numpy(TARGET)) ** 2)
+    grads = torch.autograd.grad(loss, list(theta.values()))
+    for k, g in zip(theta, grads):
+        assert torch.isfinite(g).all(), k
+        rel = _maxrel(g.numpy(), case["grads"][k])
+        assert rel < case["tol"], f"{k}: max-relative {rel:.2e}"
+
+
+def test_backward_kernel_refuses_cpu_tensors():
+    """The kernels run only on the card: on CPU tensors the wrapper raises
+    and launches nothing (the CPU path is `blend_planes`' twin)."""
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import diff_backward
+
+    cfg, binned, cots = _random_stream({}, n=20)
+    before = diff_backward.launches
+    with pytest.raises(ValueError, match="no differentiable tile-blend kernel"):
+        diff_backward(binned, cfg, cots, torch.zeros((1, cfg.tile_pixels)))
+    assert diff_backward.launches == before

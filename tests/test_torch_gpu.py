@@ -242,3 +242,205 @@ def test_diff_kernels_reject_what_they_cannot_run(cuda):
     planes, _ = _random_planes(cuda, cfg, 100)
     with pytest.raises(ValueError, match="multiple of 32"):
         blend_planes(cfg, *planes)
+
+
+# ---- the redesigned kernels' edges: chunk boundaries, one heavy tile, the queue ----
+
+def _one_tile_binned(device, cfg, n=1500):
+    """Every splat projects into one tile: its run holds more than two
+    chunks of a 512-thread block, every other tile is empty."""
+    rng = np.random.default_rng(3)
+    pos = rng.uniform(-1, 1, (n, 3)) * 0.004 + np.array([0.03, -0.03, 0.0])
+    nrm = rng.normal(size=(n, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    planes = {
+        "px": pos[:, 0], "py": pos[:, 1], "pz": pos[:, 2],
+        "radius": rng.uniform(0.012, 0.02, n), "cr": rng.uniform(0, 1, n),
+        "cg": rng.uniform(0, 1, n), "cb": rng.uniform(0, 1, n),
+        "opacity": rng.uniform(0.05, 0.3, n),
+        "nx": nrm[:, 0], "ny": nrm[:, 1], "nz": nrm[:, 2],
+    }
+    spl = splats_from_numpy(planes, device)
+    cam = camera_tensors(tpt.Camera(aspect=cfg.width / cfg.height).arrays(), device)
+    w = splat_screen_words(spl, cam["view_proj"], cam["cam_pos"], cfg)
+    return bin_packed_words(w["dk"], w["w_pos"], w["w_ro"], w["w_rgb"], cfg, with_depth=True)
+
+
+@pytest.mark.parametrize("tiles", sorted(TILES))
+@pytest.mark.parametrize("profile", ["isotropic", "oriented"])
+def test_one_heavy_tile_among_empty_ones(cuda, profile, tiles):
+    cfg = tpt.RenderConfig(width=200, height=120, tiles_per_splat_cap=8,
+                           **PROFILES[profile], **TILES[tiles])
+    binned = _one_tile_binned(cuda, cfg)
+    counts = binned["counts"]
+    assert int((counts > 0).sum()) == 1 and int(counts.max()) > 2 * cfg.tile_pixels
+    plain = blend_tiles_plain(binned, cfg, eps=0.0, with_depth=True)
+    for eps in (0.0, 0.01):
+        k1 = blend_tiles(binned, cfg, eps=eps, with_depth=True)
+        k3 = blend_tiles(binned, cfg, eps=eps, schedule="tile_xp", with_depth=True)
+        torch.cuda.synchronize()
+        for x, y in zip(k1, k3):
+            assert torch.equal(x, y), eps
+        tol = 2e-5 if eps == 0.0 else 0.0101
+        assert float((k1[0] - plain[0]).abs().max()) <= tol
+        assert float((k1[1] - plain[1]).abs().max()) <= tol
+    empty = counts == 0
+    assert float(k1[0][empty].abs().max()) == 0.0 and float(k1[1][empty].abs().max()) == 0.0
+
+
+def test_tile_queue_visits_every_nonempty_tile_once(cuda):
+    from splat_renderer_tpu_torch.ops.tile_blend import nonempty_tiles
+
+    cfg = tpt.RenderConfig(width=640, height=360, tiles_per_splat_cap=8)
+    counts = _binned(cuda, cfg, n=3000)["counts"]
+    tile_list, n_list = nonempty_tiles(counts)
+    n = int(n_list)
+    assert n == int((counts > 0).sum()) and 0 < n < cfg.num_tiles
+    listed = tile_list[:n].long()
+    assert torch.equal(torch.sort(listed).values, torch.nonzero(counts > 0).flatten())
+    by_count = counts[listed]
+    assert bool((by_count[:-1] >= by_count[1:]).all())  # heaviest first
+
+
+def _grid_planes(device, blocks, seed=0):
+    """Planes whose records sit well inside chosen 16x16 tiles: `blocks` is
+    a list of (count, tile x origin, tile y origin)."""
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import _PLANE_NAMES
+
+    rng = np.random.default_rng(seed)
+
+    def block(n, x0, y0):
+        return [rng.uniform(x0 + 5, x0 + 11, n), rng.uniform(y0 + 5, y0 + 11, n),
+                rng.uniform(0.5, 1.2, n), np.minimum(rng.uniform(0.3, 1.3, n), 1.0),
+                rng.uniform(0, 1, n), rng.uniform(0, 1, n), rng.uniform(0, 1, n),
+                rng.uniform(-3, 3, n), rng.uniform(0.2, 1, n), rng.uniform(1, 10, n)]
+
+    cols = [np.concatenate(c) for c in zip(*(block(*b) for b in blocks))]
+    return [torch.tensor(c, dtype=torch.float32, device=device).requires_grad_(True)
+            for c in cols], _PLANE_NAMES
+
+
+@pytest.mark.parametrize("profile", sorted(DIFF_PROFILES))
+def test_backward_at_chunk_edges(cuda, profile):
+    """Runs of exactly two chunks, one record, one more than a chunk, and
+    empty tiles: gradients within the gate of the twin's, bit-equal on rerun."""
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import (
+        blend_planes, blend_planes_plain, bwd_chunk,
+    )
+    from splat_renderer_tpu_torch.render.binning import bin_planes_diff
+
+    prof, grad_tol = DIFF_PROFILES[profile]
+    cfg = tpt.RenderConfig(width=64, height=48, tiles_per_splat_cap=4, **prof)
+    bc = bwd_chunk(cfg)
+    planes, names = _grid_planes(cuda, [(2 * bc, 0, 0), (1, 16, 0), (bc + 1, 32, 16)])
+    counts = bin_planes_diff({k: p.detach() for k, p in zip(names, planes)}, cfg)["counts"]
+    assert counts.tolist() == [2 * bc, 1, 0, 0, 0, 0, bc + 1, 0, 0, 0, 0, 0]
+    g = torch.Generator(device=cuda).manual_seed(2)
+    shapes = [(cfg.num_tiles, cfg.tile_pixels, 3), (cfg.num_tiles, cfg.tile_pixels),
+              (cfg.num_tiles, cfg.tile_pixels)]
+    cots = [torch.rand(s, generator=g, device=cuda) - 0.5 for s in shapes]
+    k_out, k_grads = _blend_and_grads(blend_planes, cfg, planes, cots)
+    p_out, p_grads = _blend_and_grads(blend_planes_plain, cfg, planes, cots)
+    _, k_grads2 = _blend_and_grads(blend_planes, cfg, planes, cots)
+    torch.cuda.synchronize()
+    for k, p in zip(k_out, p_out):
+        assert float((k - p).abs().max()) <= 2e-5
+    for name, kg, pg, kg2 in zip(names, k_grads, p_grads, k_grads2):
+        assert torch.equal(kg, kg2), name
+        if not cfg.oriented and name in ("angle", "ratio"):
+            continue
+        scale = float(pg.abs().max()) + 1e-12
+        assert float((kg - pg).abs().max()) / scale < grad_tol, name
+
+
+def test_backward_rerun_is_bit_equal(cuda):
+    """The backward kernel alone, twice on one stream with many multi-chunk
+    tiles: the same bits; and it refuses residuals of another shape than
+    the stream's."""
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import diff_backward, diff_forward
+    from splat_renderer_tpu_torch.render.binning import bin_planes_diff
+
+    cfg = tpt.RenderConfig(width=200, height=120, tiles_per_splat_cap=8)
+    planes, names = _random_planes(cuda, cfg, 6000)
+    binned = bin_planes_diff({k: p.detach() for k, p in zip(names, planes)}, cfg)
+    assert int(binned["counts"].max()) > 64
+    g = torch.Generator(device=cuda).manual_seed(5)
+    shapes = [(cfg.num_tiles, cfg.tile_pixels, 3), (cfg.num_tiles, cfg.tile_pixels),
+              (cfg.num_tiles, cfg.tile_pixels)]
+    cots = [torch.rand(s, generator=g, device=cuda) - 0.5 for s in shapes]
+    *outs, t_start = diff_forward(binned, cfg, residuals=True)
+    plain = diff_forward(binned, cfg)
+    with pytest.raises(ValueError, match="residuals"):
+        diff_backward(binned, cfg, cots, t_start[:-1])
+    a = diff_backward(binned, cfg, cots, t_start)
+    b = diff_backward(binned, cfg, cots, t_start)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0
+    for x, y in zip(outs, plain):  # the residual output leaves the forward's as they were
+        assert torch.equal(x, y)
+
+
+ODD_TILES = {
+    "32x32": dict(tile_size=32),                  # 1024-thread blocks: the smaller batches
+    "12x12": dict(tile_size=12),                  # no 8x4 blocks: row-major warps, a padded block
+    "24x8": dict(tile_size=24, tile_height=8),    # three 8x4 blocks a row
+}
+
+
+@pytest.mark.parametrize("tiles", sorted(ODD_TILES))
+@pytest.mark.parametrize("profile", ["isotropic", "oriented", "quad"])
+def test_blend_kernels_on_uncommon_tile_shapes(cuda, profile, tiles):
+    """Both schedules, with depth, against the twin on the tile shapes that
+    take the kernels' other paths."""
+    cfg = tpt.RenderConfig(width=200, height=120, tiles_per_splat_cap=8,
+                           **PROFILES[profile], **ODD_TILES[tiles])
+    binned = _binned(cuda, cfg, n=20000, with_depth=True)
+    plain = blend_tiles_plain(binned, cfg, eps=0.0, with_depth=True)
+    d = binned["rec_depth"].view(torch.float32)
+    d_range = float(d[torch.isfinite(d)].max())
+    for eps in (0.0, 0.01):
+        k1 = blend_tiles(binned, cfg, eps=eps, with_depth=True)
+        k3 = blend_tiles(binned, cfg, eps=eps, schedule="tile_xp", with_depth=True)
+        torch.cuda.synchronize()
+        for x, y in zip(k1, k3):
+            assert torch.equal(x, y), eps
+        tol = 2e-5 if eps == 0.0 else 0.0101
+        assert float((k1[0] - plain[0]).abs().max()) <= tol
+        assert float((k1[1] - plain[1]).abs().max()) <= tol
+        if eps == 0.0:
+            assert float((k1[2] - plain[2]).abs().max()) <= 2e-5 * d_range
+    c0, a0 = blend_tiles(binned, cfg, eps=0.0)
+    assert torch.equal(c0, blend_tiles(binned, cfg, eps=0.0, with_depth=True)[0])
+    assert float(a0.max()) > 0
+
+
+@pytest.mark.parametrize("tiles", ["32x32", "16x6"])
+@pytest.mark.parametrize("profile", sorted(DIFF_PROFILES))
+def test_diff_kernels_on_uncommon_tile_shapes(cuda, profile, tiles):
+    """1024-pixel tiles (8-record backward chunks, one record per adjoint
+    batch) and a tile without 8x4 blocks (row-major warps)."""
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import (
+        blend_planes, blend_planes_plain, bwd_chunk,
+    )
+
+    prof, grad_tol = DIFF_PROFILES[profile]
+    shape = dict(tile_size=32) if tiles == "32x32" else dict(tile_size=16, tile_height=6)
+    cfg = tpt.RenderConfig(width=192, height=96, tiles_per_splat_cap=8, **prof, **shape)
+    assert bwd_chunk(cfg) == (8 if tiles == "32x32" else 32)
+    planes, names = _random_planes(cuda, cfg, 3000)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    shapes = [(cfg.num_tiles, cfg.tile_pixels, 3), (cfg.num_tiles, cfg.tile_pixels),
+              (cfg.num_tiles, cfg.tile_pixels)]
+    cots = [torch.rand(s, generator=g, device=cuda) - 0.5 for s in shapes]
+    k_out, k_grads = _blend_and_grads(blend_planes, cfg, planes, cots)
+    p_out, p_grads = _blend_and_grads(blend_planes_plain, cfg, planes, cots)
+    _, k_grads2 = _blend_and_grads(blend_planes, cfg, planes, cots)
+    torch.cuda.synchronize()
+    for k, p in zip(k_out, p_out):
+        assert float((k - p).abs().max()) <= 2e-5
+    for name, kg, pg, kg2 in zip(names, k_grads, p_grads, k_grads2):
+        assert torch.equal(kg, kg2), name
+        if not cfg.oriented and name in ("angle", "ratio"):
+            continue
+        scale = float(pg.abs().max()) + 1e-12
+        assert float((kg - pg).abs().max()) / scale < grad_tol, name

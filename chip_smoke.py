@@ -24,14 +24,16 @@ static-scene serving and datagen paths, and checks the images.  Phases:
   6. the differentiable blend's forward (K4) and backward (K5) kernels vs
      their plain twin on random plane streams, 20k splats at 256x256,
      isotropic and oriented, 16x16 and 32x16 tiles: forward max-abs
-     <= 2e-5, every field's gradient within max-relative 1e-4 (isotropic)
-     / 1e-3 (oriented), two backward runs bit-identical
+     <= 2e-5, K4's residual (the chunk-start T it leaves for K5) within
+     2e-5 of its plain mirror, every field's gradient within max-relative
+     1e-4 (isotropic) / 1e-3 (oriented), two backward runs bit-identical
   7. the training path at the repo's training metric: 200k splats at
      512x512 (cap 4), one MSE value-and-grad step over colour and opacity
      (CUDA-event forward/backward/step times), then `fit_splats`, 5 Adam
      steps over 8 fields, whose loss must fall; K4/K5 launch counts; the
      kernels alone at that stream vs the twin (K4 with and without the
-     residuals it leaves for K5; two K5 runs bit-equal)
+     residuals it leaves for K5, the residual vs its mirror; two K5 runs
+     bit-equal), and the heaviest tile as K4's warps walk it
   8. the quality fit: 10k splats at 256x256, 6 views, half the splats
      killed, 60 steps with density control; held-out PSNR in (0, 80) and
      above the degraded start + 3 dB
@@ -63,6 +65,13 @@ then, as its last line,
 {"ok": true, "device": {...}}.  Any failed check raises, so the exit code is
 non-zero and the last line is never printed; without a CUDA device it exits
 non-zero at once.  It imports nothing of JAX.
+
+    python3 chip_smoke.py --save-k4 PATH | --check-k4 PATH
+
+runs only the differentiable blend's kernels on phase 6's and phase 7's
+streams and saves their outputs, or holds this tree's kernels to saved
+outputs bit for bit (`k4_parity`): the check that a redesigned kernel
+computes the same bits as the one it replaces.
 """
 
 from __future__ import annotations
@@ -264,16 +273,17 @@ def launch_lines(dev) -> None:
         rows.append(f"{label}: {i['registers']} registers, {i['smem_bytes']} B shared, "
                     f"{i['ctas_per_sm']} CTAs/SM"
                     + (f", grid {i['xp_grid']}" if sched == "tile_xp" else ""))
-    for label, cfg in (("diff_bwd isotropic 16x16", RenderConfig(width=512, height=512)),
-                       ("diff_bwd oriented 16x16", RenderConfig(width=512, height=512, oriented=True)),
-                       ("diff_bwd isotropic 32x16",
+    for label, cfg in (("isotropic 16x16", RenderConfig(width=512, height=512)),
+                       ("oriented 16x16", RenderConfig(width=512, height=512, oriented=True)),
+                       ("isotropic 32x16",
                         RenderConfig(width=512, height=512, tile_size=32, tile_height=16)),
-                       ("diff_bwd oriented 32x16",
+                       ("oriented 32x16",
                         RenderConfig(width=512, height=512, oriented=True, tile_size=32,
                                      tile_height=16))):
-        i = tile_blend_diff.launch_info(cfg)
-        rows.append(f"{label}: chunk {i['bwd_chunk']}, {i['registers']} registers, "
-                    f"{i['smem_bytes']} B shared, {i['ctas_per_sm']} CTAs/SM")
+        for kernel, fwd in (("diff_bwd", False), ("diff_fwd", True)):
+            i = tile_blend_diff.launch_info(cfg, forward=fwd)
+            rows.append(f"{kernel} {label}: chunk {i['bwd_chunk']}, {i['registers']} registers, "
+                        f"{i['smem_bytes']} B shared, {i['ctas_per_sm']} CTAs/SM")
     log(f"phase 1: occupancy on {i['sms']} SMs: " + "; ".join(rows))
 
 
@@ -317,47 +327,155 @@ def blend_and_grads(fn, cfg, planes, cots):
     return [o.detach() for o in outs], grads
 
 
-def phase6_diff_kernels(dev, card: str, n: int = 20_000, size: int = 256):
-    """K4/K5 vs the twin on random plane streams; returns (forward max-abs,
-    gradient max-abs, gradient max-relative)."""
-    import torch
-
+def diff_streams(dev, n: int = 20_000, size: int = 256):
+    """Phase 6's random plane streams: (seed, profile, cfg, planes) for the
+    isotropic and oriented profiles on 16x16 and 32x16 tiles."""
     from splat_renderer_tpu_torch import RenderConfig
-    from splat_renderer_tpu_torch.ops.tile_blend_diff import blend_planes, blend_planes_plain
 
-    names = ("cx", "cy", "radius", "opacity", "r", "g", "b", "angle", "ratio", "depth")
-    errs = [0.0, 0.0, 0.0]
     for seed, (prof, extra) in enumerate((("isotropic", {}), ("oriented", dict(oriented=True)))):
         for tiles in (dict(tile_size=16), dict(tile_size=32, tile_height=16)):
             cfg = RenderConfig(width=size, height=size, tiles_per_splat_cap=8, **extra, **tiles)
-            planes = random_planes(dev, cfg, n, seed)
-            g = torch.Generator(device=dev).manual_seed(seed)
-            t, tp = cfg.num_tiles, cfg.tile_pixels
-            cots = [torch.rand(s, generator=g, device=dev) - 0.5
-                    for s in ((t, tp, 3), (t, tp), (t, tp))]
-            k_out, k_grads = blend_and_grads(blend_planes, cfg, planes, cots)
-            p_out, p_grads = blend_and_grads(blend_planes_plain, cfg, planes, cots)
-            _, k_grads2 = blend_and_grads(blend_planes, cfg, planes, cots)
-            torch.cuda.synchronize()
-            d_fwd = max(float((a - b).abs().max()) for a, b in zip(k_out, p_out))
-            check(d_fwd <= EPS_TOL, f"{prof}: K4 vs twin {d_fwd}")
-            rel, d_abs = {}, 0.0
-            for name, kg, pg in zip(names, k_grads, p_grads):
-                if not cfg.oriented and name in ("angle", "ratio"):
-                    check(float(kg.abs().max()) == 0.0, f"isotropic {name} gradient")
-                    continue
-                diff = float((kg - pg).abs().max())
-                d_abs = max(d_abs, diff)
-                rel[name] = diff / (float(pg.abs().max()) + 1e-12)
-                check(rel[name] < DIFF_GRAD_TOL[prof], f"{prof}: K5 {name} max-rel {rel[name]}")
-            same = all(torch.equal(a, b) for a, b in zip(k_grads, k_grads2))
-            check(same, f"{prof}: two backward runs differ")
-            errs = [max(errs[0], d_fwd), max(errs[1], d_abs), max(errs[2], max(rel.values()))]
-            log(f"phase 6: {prof:9s} {cfg.tile_w}x{cfg.tile_h} n={n} @{size}x{size}: K4 vs twin "
-                f"max-abs {d_fwd:.3g} (<= {EPS_TOL}); K5 gradient max-rel "
-                f"{max(rel.values()):.3g} (< {DIFF_GRAD_TOL[prof]}, worst {max(rel, key=rel.get)}); "
-                f"backward bit-identical on rerun: {same}; {card}")
+            yield seed, prof, cfg, random_planes(dev, cfg, n, seed)
+
+
+def residual_error(binned, cfg) -> float:
+    """Max-abs of K4's residual (every row a tile uses) against its plain
+    mirror `diff_residuals_plain`."""
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import (
+        bwd_chunk, diff_forward, diff_residuals_plain, residual_rows_used,
+    )
+
+    bc = bwd_chunk(cfg)
+    *_, t_start = diff_forward(binned, cfg, residuals=True)
+    used = residual_rows_used(binned, bc)
+    return float((t_start[used] - diff_residuals_plain(binned, cfg, bc)[used]).abs().max())
+
+
+def phase6_diff_kernels(dev, card: str, n: int = 20_000, size: int = 256):
+    """K4/K5 vs the twin on random plane streams, and K4's residual vs its
+    plain mirror; returns (forward max-abs, gradient max-abs, gradient
+    max-relative)."""
+    import torch
+
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import blend_planes, blend_planes_plain
+    from splat_renderer_tpu_torch.render.binning import bin_planes_diff
+
+    names = ("cx", "cy", "radius", "opacity", "r", "g", "b", "angle", "ratio", "depth")
+    errs = [0.0, 0.0, 0.0]
+    for seed, prof, cfg, planes in diff_streams(dev, n, size):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        t, tp = cfg.num_tiles, cfg.tile_pixels
+        cots = [torch.rand(s, generator=g, device=dev) - 0.5
+                for s in ((t, tp, 3), (t, tp), (t, tp))]
+        k_out, k_grads = blend_and_grads(blend_planes, cfg, planes, cots)
+        p_out, p_grads = blend_and_grads(blend_planes_plain, cfg, planes, cots)
+        _, k_grads2 = blend_and_grads(blend_planes, cfg, planes, cots)
+        torch.cuda.synchronize()
+        d_fwd = max(float((a - b).abs().max()) for a, b in zip(k_out, p_out))
+        check(d_fwd <= EPS_TOL, f"{prof}: K4 vs twin {d_fwd}")
+        rel, d_abs = {}, 0.0
+        for name, kg, pg in zip(names, k_grads, p_grads):
+            if not cfg.oriented and name in ("angle", "ratio"):
+                check(float(kg.abs().max()) == 0.0, f"isotropic {name} gradient")
+                continue
+            diff = float((kg - pg).abs().max())
+            d_abs = max(d_abs, diff)
+            rel[name] = diff / (float(pg.abs().max()) + 1e-12)
+            check(rel[name] < DIFF_GRAD_TOL[prof], f"{prof}: K5 {name} max-rel {rel[name]}")
+        same = all(torch.equal(a, b) for a, b in zip(k_grads, k_grads2))
+        check(same, f"{prof}: two backward runs differ")
+        binned = bin_planes_diff({k: p.detach() for k, p in zip(names, planes)}, cfg)
+        d_res = residual_error(binned, cfg)
+        check(d_res <= EPS_TOL, f"{prof}: K4's residual vs its mirror {d_res}")
+        errs = [max(errs[0], d_fwd, d_res), max(errs[1], d_abs), max(errs[2], max(rel.values()))]
+        log(f"phase 6: {prof:9s} {cfg.tile_w}x{cfg.tile_h} n={n} @{size}x{size}: K4 vs twin "
+            f"max-abs {d_fwd:.3g}, its residual vs diff_residuals_plain {d_res:.3g} (both <= "
+            f"{EPS_TOL}); K5 gradient max-rel "
+            f"{max(rel.values()):.3g} (< {DIFF_GRAD_TOL[prof]}, worst {max(rel, key=rel.get)}); "
+            f"backward bit-identical on rerun: {same}; {card}")
     return errs
+
+
+def training_scene(dev, n: int = 200_000, size: int = 512):
+    """The training metric's scene: (cfg, splats, camera), 200k demo-scene
+    splats at 512x512, cap 4, from seed 7."""
+    import torch
+
+    from splat_renderer_tpu_torch import Camera, PointConfig, RenderConfig
+    from splat_renderer_tpu_torch.camera import camera_tensors
+    from splat_renderer_tpu_torch.render.pipeline import demo_scene, model_points
+
+    cfg = RenderConfig(width=size, height=size, base_radius=0.008, tiles_per_splat_cap=4)
+    scene = demo_scene()
+    spl = model_points(scene, scene.params(dev), torch.Generator(device=dev).manual_seed(7),
+                       n, PointConfig(), cfg, device=dev)
+    return cfg, spl, camera_tensors(Camera(aspect=1.0).arrays(), dev)
+
+
+def training_planes(s, cam, cfg):
+    """The training step's record planes, as `render_diff` makes them."""
+    from splat_renderer_tpu_torch._torch_util import clip
+    from splat_renderer_tpu_torch.render.projector import shade_planes
+
+    c = shade_planes(s, cam["view_proj"], cam["cam_pos"], cfg)
+    out = {k: c[k] for k in ("cx", "cy", "radius", "angle", "ratio", "depth")}
+    out.update({k: clip(c[k], 0.0, 1.0) for k in ("opacity", "r", "g", "b")})
+    return out
+
+
+def diff_heaviest_tile(binned, cfg) -> str:
+    """The heaviest tile of a `bin_planes_diff` stream as K4's warps walk
+    it: the share of its records each warp's pixels can reach (the culling
+    test against all its pixels), the records each warp evaluates when, as
+    the kernel does, it culls each 32 records against the pixels still
+    alive and leaves once all 32 are at T = 0, where in the run it leaves,
+    and the share of the tile's pixels that end at T = 0."""
+    import torch
+
+    from splat_renderer_tpu_torch.ops.tile_blend import cull_live_plain, warp_pixels, warp_rects
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import _pair_alpha, diff_cut2
+
+    dev = binned["offsets"].device
+    t = int(torch.argmax(binned["counts"]))
+    lo, hi = int(binned["offsets"][t]), int(binned["offsets"][t + 1])
+    rec = binned["planes"].detach().index_select(0, binned["pair_rank"][lo:hi].long())
+    ox = float((t % cfg.tiles_x) * cfg.tile_w)
+    oy = float((t // cfg.tiles_x) * cfg.tile_h)
+    pix = torch.arange(cfg.tile_pixels, device=dev)
+    px = (ox + pix % cfg.tile_w).float() + 0.5
+    py = (oy + pix // cfg.tile_w).float() + 0.5
+    _, a = _pair_alpha(cfg, rec, px[None], py[None])  # (records, tile pixels)
+    before = torch.empty_like(a)  # each pixel's T before each record
+    trans = torch.ones_like(px)
+    for i in range(a.shape[0]):
+        before[i] = trans
+        trans = trans * (1.0 - a[i])
+    cut2, rr = diff_cut2(rec, cfg)
+    col = lambda v: v[:, None]  # noqa: E731
+    rect = warp_rects(cfg).to(dev)
+    live = cull_live_plain(col(rec[:, 0]), col(rec[:, 1]), col(cut2), col(rr),
+                           ox + rect[None, :, 0], ox + rect[None, :, 1], oy + rect[None, :, 2],
+                           oy + rect[None, :, 3], cfg.oriented, False).float().mean(0)
+    # the kernel's walk: 32 records at a time against the rectangle of the
+    # warp's pixels alive when they start
+    lanes = warp_pixels(cfg).to(dev)  # (warps, 32)
+    alive = before[::32][:, lanes] > 0.0  # (words, warps, 32)
+    lx, ly = px[lanes][None], py[lanes][None]
+    big = 3.0e38
+    x0, x1 = torch.where(alive, lx, big).amin(-1), torch.where(alive, lx, -big).amax(-1)
+    y0, y1 = torch.where(alive, ly, big).amin(-1), torch.where(alive, ly, -big).amax(-1)
+    word = torch.arange(a.shape[0], device=dev) // 32
+    walked = (cull_live_plain(col(rec[:, 0]), col(rec[:, 1]), col(cut2), col(rr),
+                              x0[word], x1[word], y0[word], y1[word], cfg.oriented, False)
+              & alive.any(-1)[word]).sum(0)  # records each warp evaluates
+    # the share of the run each warp walks before all its pixels stop
+    share = (alive.any(-1).sum(0) * 32).clamp(max=a.shape[0]).float() / a.shape[0]
+    return (f"tile {t} ({hi - lo} records): its warps' pixels can reach {float(live.min()):.2f} "
+            f"to {float(live.max()):.2f} of them (all warps {float(live.mean()):.3f}); culling "
+            f"against the pixels still alive, its warps evaluate {int(walked.min())} to "
+            f"{int(walked.max())} records and leave after {float(share.min()):.2f} to "
+            f"{float(share.max()):.2f} of the run; {float((trans == 0).float().mean()):.3f} of "
+            "its pixels end at T = 0")
 
 
 def phase7_training_step(dev, card: str, n: int = 200_000, size: int = 512, fit_steps: int = 5):
@@ -366,24 +484,15 @@ def phase7_training_step(dev, card: str, n: int = 200_000, size: int = 512, fit_
 
     import torch
 
-    from splat_renderer_tpu_torch import Camera, PointConfig, RenderConfig
-    from splat_renderer_tpu_torch._torch_util import clip
-    from splat_renderer_tpu_torch.camera import camera_tensors
     from splat_renderer_tpu_torch.fit import fit_splats
     from splat_renderer_tpu_torch.ops.tile_blend_diff import (
-        blend_binned_plain, bwd_chunk, diff_backward, diff_forward,
+        blend_binned_plain, bwd_chunk, diff_backward, diff_cut2, diff_forward,
     )
     from splat_renderer_tpu_torch.render.binning import bin_planes_diff
     from splat_renderer_tpu_torch.render.compositor import tiles_to_image
     from splat_renderer_tpu_torch.render.diff import render_diff
-    from splat_renderer_tpu_torch.render.pipeline import demo_scene, model_points
-    from splat_renderer_tpu_torch.render.projector import shade_planes
 
-    cfg = RenderConfig(width=size, height=size, base_radius=0.008, tiles_per_splat_cap=4)
-    scene = demo_scene()
-    spl = model_points(scene, scene.params(dev), torch.Generator(device=dev).manual_seed(7),
-                       n, PointConfig(), cfg, device=dev)
-    cam = camera_tensors(Camera(aspect=1.0).arrays(), dev)
+    cfg, spl, cam = training_scene(dev, n, size)
     with torch.no_grad():
         target = render_diff(spl, cam, cfg, method="kernel")
 
@@ -416,11 +525,6 @@ def phase7_training_step(dev, card: str, n: int = 200_000, size: int = 512, fit_
         + " ".join(f"{k} {v:.3f}" for k, v in med.items()) + f"; {card}")
 
     # the step's forward by stage (no autograd), median of 5
-    def planes_of(s):
-        c = shade_planes(s, cam["view_proj"], cam["cam_pos"], cfg)
-        out = {k: c[k] for k in ("cx", "cy", "radius", "angle", "ratio", "depth")}
-        out.update({k: clip(c[k], 0.0, 1.0) for k in ("opacity", "r", "g", "b")})
-        return out
 
     stage_names = ("project", "bin", "K4", "image+loss")
     stages = {k: [] for k in stage_names}
@@ -429,7 +533,7 @@ def phase7_training_step(dev, card: str, n: int = 200_000, size: int = 512, fit_
         for _ in range(6):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
             ev[0].record()
-            planes = planes_of(dict(spl, **theta))
+            planes = training_planes(dict(spl, **theta), cam, cfg)
             ev[1].record()
             binned = bin_planes_diff(planes, cfg)
             ev[2].record()
@@ -482,7 +586,7 @@ def phase7_training_step(dev, card: str, n: int = 200_000, size: int = 512, fit_
         f"ms/step (CUDA events); {card}")
 
     # the kernels alone at this stream, against the twin
-    binned = bin_planes_diff(planes_of(spl), cfg)
+    binned = bin_planes_diff(training_planes(spl, cam, cfg), cfg)
     # the training step's form of K4: it also leaves K5's residuals
     *outs, t_start = diff_forward(binned, cfg, residuals=True)
     g = torch.Generator(device=dev).manual_seed(3)
@@ -499,6 +603,8 @@ def phase7_training_step(dev, card: str, n: int = 200_000, size: int = 512, fit_
         p_ms = elapsed_ms(lambda: blend_binned_plain(binned, cfg), 2)
     d_fwd = max(float((a - b).abs().max()) for a, b in zip(outs, p_out))
     check(d_fwd <= EPS_TOL, f"200k stream: K4 vs twin {d_fwd}")
+    d_res = residual_error(binned, cfg)
+    check(d_res <= EPS_TOL, f"200k stream: K4's residual vs its mirror {d_res}")
     twin = dict(binned, planes=binned["planes"].detach().clone().requires_grad_(True))
     torch.cuda.reset_peak_memory_stats()
     p_outs = blend_binned_plain(twin, cfg)
@@ -516,8 +622,7 @@ def phase7_training_step(dev, card: str, n: int = 200_000, size: int = 512, fit_
     check(rel < DIFF_GRAD_TOL["isotropic"], f"200k stream: K5 vs twin max-rel {rel}")
 
     pl = binned["planes"]
-    r = pl[:, 2]
-    cut2 = torch.where(r >= cfg.min_screen_radius, cfg.bounds_margin ** 2 * (r * r), -1.0)
+    cut2, rr = diff_cut2(pl, cfg)
     evals, inside = support_evals(pl[:, 0], pl[:, 1], cut2, binned, cfg)
     n_pairs = int(binned["offsets"][-1])
     t, tp, nf = cfg.num_tiles, cfg.tile_pixels, pl.shape[1]
@@ -530,18 +635,20 @@ def phase7_training_step(dev, card: str, n: int = 200_000, size: int = 512, fit_
     fwd_bytes = head + t * tp * 5 * 4 + resid
     # + slots, cotangents, rows
     bwd_bytes = head + n_pairs * 4 + 2 * t * tp * 5 * 4 + n_pairs * nf * 4
-    culled = cull_share(pl[:, 0], pl[:, 1], cut2, torch.ones_like(r), binned, cfg)
-    log(f"phase 7: the {n // 1000}k @{size}x{size} stream's tiles: {tile_load(binned)}")
+    culled = cull_share(pl[:, 0], pl[:, 1], cut2, rr, binned, cfg)
+    log(f"phase 7: the {n // 1000}k @{size}x{size} stream's tiles: {tile_load(binned)}; "
+        f"{diff_heaviest_tile(binned, cfg)}")
     fb = bound("tile_blend_diff_fwd", fwd_bytes, evals, inside)
     bb = bound("tile_blend_diff_bwd", bwd_bytes, evals, inside)
     log(f"phase 7: kernels at the {n // 1000}k @{size}x{size} stream ({n_pairs} pairs, "
         f"{inside} of {evals} evaluations inside the support; culling removes {culled:.3f} of "
         f"the (record, warp) pairs): K4 {k_ms:.3f} ms with K5's residuals ({resid} B), "
         f"{k_bare_ms:.3f} ms without (bound {fb[0]:.4f} ms, {fb[1]}), twin {p_ms:.3f} ms, "
-        f"max-abs {d_fwd:.3g}; K5 {b_ms:.3f} ms (bound {bb[0]:.4f} ms, {bb[1]}), two runs "
-        f"bit-equal, twin backward {pb_ms:.3f} ms (peak {twin_gib:.2f} GiB), max-rel {rel:.3g}; "
-        f"{card}")
-    return dict(launches=launches, fwd=(k_ms, p_ms, fb, d_fwd), bwd=(b_ms, pb_ms, bb, d_bwd))
+        f"max-abs {d_fwd:.3g}, residual vs its mirror {d_res:.3g}; K5 {b_ms:.3f} ms (bound "
+        f"{bb[0]:.4f} ms, {bb[1]}), two runs bit-equal, twin backward {pb_ms:.3f} ms (peak "
+        f"{twin_gib:.2f} GiB), max-rel {rel:.3g}; {card}")
+    return dict(launches=launches, fwd=(k_ms, p_ms, fb, max(d_fwd, d_res)),
+                bwd=(b_ms, pb_ms, bb, d_bwd))
 
 
 def phase8_quality_fit(dev, card: str, qn: int = 10_000, qres: int = 256, qsteps: int = 60):
@@ -1360,5 +1467,83 @@ def main() -> None:
     }}), flush=True)
 
 
+def k4_parity(mode: str, path: str) -> None:
+    """Hold K4 and K5 to another tree's kernels bit for bit.
+
+    `--save-k4 PATH`: run K4 (with and without its residual) and K5 on phase
+    6's four streams and phase 7's 200k stream and save the streams, the
+    cotangents and every output to PATH.  `--check-k4 PATH`: run this
+    tree's kernels on the saved streams and require every output to be
+    `torch.equal` to the saved one (the residual in every row a tile uses).
+    To compare with an earlier tree, copy this file into that tree's root
+    and save from there; then check from this one."""
+    import dataclasses
+
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch sees no CUDA device")
+    from splat_renderer_tpu_torch import RenderConfig
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import diff_backward, diff_forward
+    from splat_renderer_tpu_torch.render.binning import bin_planes_diff
+
+    dev = torch.device("cuda")
+
+    def run(binned, cfg, cots):
+        *outs, t_start = diff_forward(binned, cfg, residuals=True)
+        bare = diff_forward(binned, cfg)
+        grads = diff_backward(binned, cfg, cots, t_start)
+        torch.cuda.synchronize()
+        return dict(outs=list(outs), bare=list(bare), t_start=t_start, grads=grads)
+
+    cpu = lambda v: [x.cpu() for x in v] if isinstance(v, list) else v.cpu()  # noqa: E731
+    if mode == "save":
+        names = ("cx", "cy", "radius", "opacity", "r", "g", "b", "angle", "ratio", "depth")
+        streams = [(cfg, bin_planes_diff({k: p.detach() for k, p in zip(names, planes)}, cfg))
+                   for _, _, cfg, planes in diff_streams(dev)]
+        cfg, spl, cam = training_scene(dev)
+        with torch.no_grad():
+            streams.append((cfg, bin_planes_diff(training_planes(spl, cam, cfg), cfg)))
+        saved = []
+        for i, (cfg, binned) in enumerate(streams):
+            g = torch.Generator(device=dev).manual_seed(100 + i)
+            t, tp = cfg.num_tiles, cfg.tile_pixels
+            cots = [torch.rand(s, generator=g, device=dev) - 0.5
+                    for s in ((t, tp, 3), (t, tp), (t, tp))]
+            out = run(binned, cfg, cots)
+            saved.append(dict(cfg=dataclasses.asdict(cfg), cots=cpu(cots),
+                              binned={k: v.detach().cpu() for k, v in binned.items()},
+                              **{k: cpu(v) for k, v in out.items()}))
+        torch.save(saved, path)
+        log(f"k4 parity: saved {len(saved)} streams' K4/K5 outputs to {path}")
+        return
+
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import bwd_chunk, residual_rows_used
+
+    equal = []
+    for i, rec in enumerate(torch.load(path)):
+        cfg = RenderConfig(**rec["cfg"])
+        binned = {k: v.to(dev) for k, v in rec["binned"].items()}
+        out = run(binned, cfg, [c.to(dev) for c in rec["cots"]])
+        used = residual_rows_used(binned, bwd_chunk(cfg)).cpu()
+        same = {
+            "outputs": all(torch.equal(a.cpu(), b) for a, b in zip(out["outs"], rec["outs"])),
+            "without_residual": all(torch.equal(a.cpu(), b)
+                                    for a, b in zip(out["bare"], rec["bare"])),
+            "residual": torch.equal(out["t_start"].cpu()[used], rec["t_start"][used]),
+            "k5_gradients": torch.equal(out["grads"].cpu(), rec["grads"]),
+        }
+        equal.append(all(same.values()))
+        log(f"k4 parity: stream {i} ({'oriented' if cfg.oriented else 'isotropic'} "
+            f"{cfg.tile_w}x{cfg.tile_h} @{cfg.width}x{cfg.height}, "
+            f"{int(binned['offsets'][-1])} pairs, {used.numel()} residual rows): torch.equal "
+            + ", ".join(f"{k} {v}" for k, v in same.items()))
+    check(all(equal), "K4/K5 outputs differ from the saved ones")
+    print(json.dumps({"k4_bit_equal": all(equal), "streams": len(equal)}), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] in ("--save-k4", "--check-k4"):
+        k4_parity(sys.argv[1][2:6], sys.argv[2])
+    else:
+        main()

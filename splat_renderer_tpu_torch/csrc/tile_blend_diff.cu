@@ -2,16 +2,19 @@
 // hand-written for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels splat_renderer_tpu/ops/
-// tile_blend_diff.py::_make_fwd_kernel (forward) and ::_make_bwd_kernel
-// (backward).  The plain twin is ops/tile_blend_diff.py::
-// blend_planes_plain; the gradients are those of its autograd, and
-// ops/tile_blend_diff.py::blend_adjoint_plain mirrors the backward's
-// recurrence in plain PyTorch.
+// tile_blend_diff.py::_make_fwd_kernel (forward, :136) and
+// ::_make_bwd_kernel (backward, :199).  The plain twin is
+// ops/tile_blend_diff.py::blend_planes_plain; the gradients are those of
+// its autograd.  ops/tile_blend_diff.py::diff_fold_plain mirrors the
+// forward's sequential fold and its residual layout, ::blend_adjoint_plain
+// the backward's recurrence, in plain PyTorch.
 //
 // Inputs are continuous float32 record planes in canonical order (N, nf),
 // nf = 8 isotropic [cx cy r op cr cg cb d] or 10 oriented
 // [cx cy r op cr cg cb ang ratio d], and each tile's depth-ordered run of
-// record ranks (render/binning.py::bin_planes_diff).  Per (record, pixel):
+// record ranks (render/binning.py::bin_planes_diff, which clips opacity and
+// colour and writes culled depths as 0: every plane is finite).  Per
+// (record, pixel):
 //   scale = r (isotropic) or r * max(ratio, 1e-3) (oriented, distance in
 //   the ellipse frame), inv_s2 = 1 / max(scale^2, 1e-12),
 //   shape = exp(-dist2 * inv_s2 / (2 sigma^2)) inside dist2 <= margin^2
@@ -39,28 +42,81 @@
 // (the same products in the same order, so the same bits), and the adjoint
 // runs back to front.
 //
-// What bounds it on the H100: operations, not bytes, and in practice the
-// walk of the heaviest tile.  A pair reads nf * 4 bytes of record and is
-// evaluated against every pixel of its tile (256 for 16x16 tiles): some 10
-// FP32 operations for the support test, and inside the support one expf
-// and about 15 (forward) or 45 (backward) more, plus the sum of each
-// record's 8 or 11 gradient terms over the tile's pixels.  A training
-// frame has a few hundred nonempty tiles and its heaviest holds several
-// times the mean, so the time is the latency of that tile's chunk loop
-// (cull, forward, adjoint, reduction, one barrier), not the card's
-// arithmetic rate.  There are no matrix products, so the tensor cores
-// (wgmma) have no part.
+// What bounds both on the H100: operations, not bytes, and in practice the
+// walk of the heaviest tile's busiest warp.  A pair reads nf * 4 bytes of
+// record and is evaluated against every pixel of its tile (256 for 16x16
+// tiles): some 6 FP32 operations for the support test, and inside the
+// support one expf and about 14 (forward) or 43 (backward) more, plus the
+// sum of each record's 8 or 11 gradient terms over the tile's pixels.  A
+// training frame has a few hundred nonempty tiles and its heaviest holds
+// several times the mean; inside it the records pile up on a few pixel
+// blocks, and each pixel's fold is serial.  So the time is the latency of
+// that warp's walk, not the card's arithmetic rate.  There are no matrix
+// products, so the tensor cores (wgmma) have no part.
 //
-// Design of the backward: one CTA per tile, one thread per pixel
-// (tile_pixels a multiple of 32, at most 1024), a warp over a compact 8x4
-// pixel block where the tile allows it.
+// Design of the forward: one CTA per tile, one thread per pixel (tile_pixels
+// a multiple of 32, at most 1024), a warp over a compact 8x4 pixel block
+// where the tile allows it (warp_cull.cuh's `tile_pixel`; row-major warps in
+// other tiles).  The outputs stay row-major in the tile.
+// * Every warp walks the tile's run on its own: no block barrier, nothing
+//   shared between warps.  It leaves the tile when all its pixels have
+//   stopped (below).
+// * Warp-level culling.  Per 32 records each lane decodes ONE record as far
+//   as the test needs (centre, ratio, cutoff) and tests it against the
+//   rectangle of the centres of the warp's pixels still alive (`cull_live`,
+//   the test tile_blend.cu and the backward use); a ballot gives the live
+//   records, and the pixel loop walks the set bits in ascending order, so
+//   the fold stays front to back.  A culled record has d2 > cut2 at every
+//   alive pixel of the warp, so the old per-pixel test skipped it too:
+//   exactly for isotropic records, and for oriented ones under the
+//   kCullSlack widening warp_cull.cuh documents.
+// * Exact-zero stop, not an early exit.  A pixel whose T is exactly +0
+//   takes nothing more.  With finite planes that changes no bit: w = a * 0
+//   = +0, c + rgb * (+0) = c (the sums are never -0), 0 * (1 - a) = 0.
+//   Nothing truncates at T > 0.  In a deep tile every pixel ends at 0 by
+//   underflow; the warp's rectangle shrinks as its pixels stop (at most 32
+//   times a tile), and the warp leaves when all 32 have.
+// * Staging per warp.  Only live records are decoded in full (colour,
+//   inv_s2's IEEE division, the ellipse polynomial), by their lanes, into
+//   the warp's slot of shared memory, three float4 a record: (cx, cy, cut2,
+//   inv_s2), (op, r, g, b), (ca, sa, rr, d), read back as 16-byte broadcast
+//   loads.  Two slots alternate, so one __syncwarp per 32 records orders the
+//   writes and the reads.
+// * Batches of 4 live records (2 in 1024-thread blocks, for registers):
+//   their alphas are independent of each other and of T, every lane runs
+//   the same instructions (no branch on "inside": a lane outside selects
+//   alpha 0), and the next batch is evaluated beside the current batch's
+//   fold, so the only serial chain is T's.  A record with alpha 0 adds
+//   w = +0 and multiplies T by 1: the same bits as skipping it.
+// * Gathers in flight under compute: a register pipeline, as in
+//   tile_blend.cu.  A warp takes 64 records a step (32 in 1024-thread
+//   blocks); the rows of the next step and the ranks of the step after it
+//   load while this step computes.  Rows are read where they lie: an
+//   isotropic row (32 B, the wrapper makes the base 16-byte aligned) as two
+//   16-byte loads, an oriented row (40 B, so only 8-byte aligned) as five
+//   8-byte loads.
+// * The residual: with a backward chunk BC of 8, 16 or 32, each lane stores
+//   its pixel's T (__stcs: written once, read once) at every BC-record
+//   boundary, at row chunk_row(t, start, BC) + (i - start) / BC and its
+//   pixel's row-major column, the layout the backward reads.  A 32-record
+//   ballot word spans 32 / BC chunks: its live mask is folded piece by
+//   piece, each piece after its row is stored, also when the warp culled
+//   the whole piece.  When the warp leaves, it stores 0 (its T) in every
+//   row left.  BC = 0 (no gradient asked for) shares the body.
+// Bit-equal to the sequential fold that tests every pixel against every
+// record: per evaluation the op sequence is expf(neg_inv_2sigma2 * (d2 *
+// inv_s2)), fminf(op * shape, cap), w = a * T, the colour and depth sums,
+// T *= 1 - a, in record order per pixel; what the design skips (culled
+// records, stopped pixels) changes no bit, as said above.
+//
+// Design of the backward: one CTA per tile, one thread per pixel, a warp
+// over a compact 8x4 pixel block where the tile allows it.
 // * Warp-level culling: per chunk each lane tests one record against the
-//   warp's rectangle of pixel centres (warp_cull.cuh's `cull_live`, the test
-//   tile_blend.cu uses: nearest-point distance against the cutoff; oriented
-//   records against cut2 / min(1, rr)^2 widened by kCullSlack), and a
-//   ballot gives the warp its live records.  A dead record costs the warp
-//   nothing: no test per pixel, no shuffles, no stores; the cross-warp sum
-//   reads each warp's mask of the records it wrote.
+//   warp's rectangle of pixel centres (`cull_live`; oriented records against
+//   cut2 / min(1, rr)^2 widened by kCullSlack), and a ballot gives the warp
+//   its live records.  A dead record costs the warp nothing: no test per
+//   pixel, no shuffles, no stores; the cross-warp sum reads each warp's mask
+//   of the records it wrote.
 // * One support test and one expf per evaluation: the forward walk keeps
 //   T_i and shape_i of the evaluations inside the support in shared memory
 //   (thread-private columns, no bank conflicts) and their mask in a
@@ -88,9 +144,6 @@
 // (c * n + rank); slots are unique, so the write is an assignment and the
 // wrapper's sum over the cap slots of a record is deterministic too.
 //
-// Design of the forward: one CTA per tile, one thread per pixel, records
-// staged through shared memory in chunks of 256, each decoded once.
-//
 // Built with -fmad=false like tile_blend.cu: the support cutoff is a hard
 // threshold and must round as the PyTorch twin does.
 
@@ -116,7 +169,6 @@ struct DiffParams {
   int tile_h;
 };
 
-constexpr int kFwdChunk = 256;  // records staged per forward chunk
 constexpr int kMaxBwdChunk = 32;  // a backward chunk's records fit one 32-bit mask
 constexpr int kFwdBatch = 4;  // records of the backward's forward walk evaluated together
 
@@ -126,6 +178,22 @@ constexpr int kFwdBatch = 4;  // records of the backward's forward walk evaluate
 // pairs / bc + tiles rows hold them all, without a table.
 __device__ __forceinline__ size_t chunk_row(int t, int start, int bc) {
   return static_cast<size_t>(start / bc + t);
+}
+
+// A record's support from its radius and ratio: rr (1 when isotropic),
+// scale^2 and the cutoff on dist2, negative for a record culled below
+// min_screen_radius (no pixel is inside its support).
+template <bool ORIENTED>
+__device__ __forceinline__ void support_of(float r, float ratio, const DiffParams& p, float& rr,
+                                           float& scale2, float& cut2) {
+  float scale = r;
+  rr = 1.0f;
+  if (ORIENTED) {
+    rr = fmaxf(ratio, 1e-3f);
+    scale = r * rr;
+  }
+  scale2 = scale * scale;
+  cut2 = (r >= p.min_r) ? p.margin2 * scale2 : -1.0f;
 }
 
 // One record decoded for the pixel loop.
@@ -148,19 +216,11 @@ __device__ __forceinline__ Rec decode_rec(const float* q, const DiffParams& p) {
   v.cg = q[5];
   v.cb = q[6];
   v.d = q[nf - 1];
-  float scale = v.r;
   v.ca = v.sa = 0.0f;
-  v.rr = 1.0f;
-  v.ratio = 1.0f;
-  if (ORIENTED) {
-    v.ratio = q[8];
-    v.rr = fmaxf(v.ratio, 1e-3f);
-    ellipse_cos_sin(q[7], v.ca, v.sa);
-    scale = v.r * v.rr;
-  }
-  const float scale2 = scale * scale;
-  // a culled record gets a negative cutoff: no pixel is inside its support
-  v.cut2 = (v.r >= p.min_r) ? p.margin2 * scale2 : -1.0f;
+  v.ratio = ORIENTED ? q[8] : 1.0f;
+  if (ORIENTED) ellipse_cos_sin(q[7], v.ca, v.sa);
+  float scale2;
+  support_of<ORIENTED>(v.r, v.ratio, p, v.rr, scale2, v.cut2);
   v.inv_s2 = 1.0f / fmaxf(scale2, 1e-12f);
   return v;
 }
@@ -178,97 +238,290 @@ __device__ __forceinline__ float dist2_of(float dx, float dy, float ca, float sa
   return dx * dx + dy * dy;
 }
 
+// ---- the forward (K4) ----
+
+// A record's row as gathered from device memory: its nf floats.
+template <bool ORIENTED>
+struct Row {
+  float f[ORIENTED ? 10 : 8];
+};
+
+// Gather row `rank`.  Read-only data: __ldg takes the non-coherent path,
+// through L1, where the warps of a tile that walk close together find each
+// other's sectors.
+template <bool ORIENTED>
+__device__ __forceinline__ void load_row(const float* __restrict__ planes, int rank,
+                                         Row<ORIENTED>& w) {
+  if constexpr (ORIENTED) {  // 40-byte rows: 8-byte aligned
+    const float2* q = reinterpret_cast<const float2*>(planes + static_cast<size_t>(rank) * 10);
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      const float2 v = __ldg(q + i);
+      w.f[2 * i] = v.x;
+      w.f[2 * i + 1] = v.y;
+    }
+  } else {  // 32-byte rows of a 16-byte aligned base
+    const float4* q = reinterpret_cast<const float4*>(planes + static_cast<size_t>(rank) * 8);
+    const float4 lo = __ldg(q), hi = __ldg(q + 1);
+    w.f[0] = lo.x;
+    w.f[1] = lo.y;
+    w.f[2] = lo.z;
+    w.f[3] = lo.w;
+    w.f[4] = hi.x;
+    w.f[5] = hi.y;
+    w.f[6] = hi.z;
+    w.f[7] = hi.w;
+  }
+}
+
+// What the culling test reads of a record: decoded first, for every record.
+struct Reach {
+  float cx, cy, rr, scale2, cut2;
+};
+
+template <bool ORIENTED>
+__device__ __forceinline__ Reach decode_reach(const Row<ORIENTED>& w, const DiffParams& p) {
+  Reach v;
+  v.cx = w.f[0];
+  v.cy = w.f[1];
+  float ratio = 1.0f;
+  if constexpr (ORIENTED) ratio = w.f[8];
+  support_of<ORIENTED>(w.f[2], ratio, p, v.rr, v.scale2, v.cut2);
+  return v;
+}
+
+// A warp's staging slot: 32 decoded records, a (cx, cy, cut2, inv_s2),
+// b (op, r, g, b), c (ca, sa, rr, d).
+struct Stage {
+  float4 *a, *b, *c;
+};
+
+constexpr int kFwdVecs = 3;  // float4 per staged record
+
+__device__ __forceinline__ Stage stage_at(float4* base) {
+  return Stage{base, base + 32, base + 64};
+}
+
+// The rest of a live record's decoding, into slot j of the warp's stage.
+template <bool ORIENTED>
+__device__ __forceinline__ void decode_store(const Stage& s, int j, const Row<ORIENTED>& w,
+                                             const Reach& v) {
+  constexpr int nf = ORIENTED ? 10 : 8;
+  s.a[j] = make_float4(v.cx, v.cy, v.cut2, 1.0f / fmaxf(v.scale2, 1e-12f));
+  s.b[j] = make_float4(w.f[3], w.f[4], w.f[5], w.f[6]);
+  float ca = 0.0f, sa = 0.0f;
+  if constexpr (ORIENTED) ellipse_cos_sin(w.f[7], ca, sa);
+  s.c[j] = make_float4(ca, sa, v.rr, w.f[nf - 1]);
+}
+
+// One pixel's accumulators.
+struct Pixel {
+  float px, py;
+  float trans;
+  float cr, cg, cb, cd;
+};
+
+// BATCH live records of a warp's stage evaluated at one pixel: their alphas
+// are independent of each other and of T.
+template <int BATCH>
+struct Batch {
+  float alpha[BATCH], r[BATCH], g[BATCH], b[BATCH], dep[BATCH];
+};
+
+// Take the next BATCH set bits of `live` (ascending) and evaluate them, each
+// with the old kernel's op sequence.  No branch: a lane outside a record's
+// support selects alpha 0, and past the last live record the batch repeats
+// it with alpha 0.
+template <bool ORIENTED, int BATCH>
+__device__ __forceinline__ Batch<BATCH> take_batch(const Stage& s, unsigned& live,
+                                                   const Pixel& q, const DiffParams& p) {
+  Batch<BATCH> bt;
+  int j = 0;
+#pragma unroll
+  for (int k = 0; k < BATCH; ++k) {
+    const bool valid = live != 0u;
+    j = valid ? __ffs(live) - 1 : j;
+    live &= live - 1;
+    const float4 a = s.a[j], rgb = s.b[j], c = s.c[j];
+    float u, vr;
+    const float d2 = dist2_of<ORIENTED>(q.px - a.x, q.py - a.y, c.x, c.y, c.z, u, vr);
+    const float shape = expf(p.neg_inv_2sigma2 * (d2 * a.w));
+    const float al = fminf(rgb.x * shape, p.alpha_cap);
+    bt.alpha[k] = (valid && d2 <= a.z) ? al : 0.0f;
+    bt.r[k] = rgb.y;
+    bt.g[k] = rgb.z;
+    bt.b[k] = rgb.w;
+    bt.dep[k] = c.w;
+  }
+  return bt;
+}
+
+// Fold a batch into the pixel, front to back: w = a T, the sums, T *= 1 - a.
+// The only serial chain is T.  An alpha of 0 adds w = +0 to sums that are
+// never -0 and multiplies T by 1: the same bits as skipping the record.
+template <int BATCH>
+__device__ __forceinline__ void fold_batch(const Batch<BATCH>& bt, Pixel& q) {
+#pragma unroll
+  for (int k = 0; k < BATCH; ++k) {
+    const float w = bt.alpha[k] * q.trans;
+    q.cr += bt.r[k] * w;
+    q.cg += bt.g[k] * w;
+    q.cb += bt.b[k] * w;
+    q.cd += bt.dep[k] * w;
+    q.trans *= 1.0f - bt.alpha[k];
+  }
+}
+
+// Fold the records of `live` into the pixel, BATCH at a time,
+// software-pipelined: the next batch is evaluated beside the current fold.
+template <bool ORIENTED, int BATCH>
+__device__ __forceinline__ void composite_live(const Stage& s, unsigned live, Pixel& q,
+                                               const DiffParams& p) {
+  Batch<BATCH> cur = take_batch<ORIENTED, BATCH>(s, live, q, p);
+  while (live != 0u) {
+    const Batch<BATCH> next = take_batch<ORIENTED, BATCH>(s, live, q, p);
+    fold_batch<BATCH>(cur, q);
+    cur = next;
+  }
+  fold_batch<BATCH>(cur, q);
+}
+
 // BC: the backward's chunk when its residual is asked for (8, 16 or 32: T
 // at the start of every BC records goes to t_start), 0 when it is not.
-template <bool ORIENTED, int BC>
-__global__ void __launch_bounds__(1024) diff_fwd_kernel(const int* __restrict__ offsets,
+// MAXT: the largest block the instantiation launches with; the 1024-thread
+// blocks take 32 records a step and batches of 2, for registers.
+template <bool ORIENTED, int BC, int MAXT>
+__global__ void __launch_bounds__(MAXT) diff_fwd_kernel(const int* __restrict__ offsets,
                                 const int* __restrict__ pair_rank,
                                 const float* __restrict__ planes,
                                 float* __restrict__ tile_color,
                                 float* __restrict__ tile_alpha,
                                 float* __restrict__ tile_depth,
                                 float* __restrict__ t_start, DiffParams p) {
-  __shared__ float s_cx[kFwdChunk], s_cy[kFwdChunk], s_op[kFwdChunk];
-  __shared__ float s_cut2[kFwdChunk], s_inv_s2[kFwdChunk];
-  __shared__ float s_r[kFwdChunk], s_g[kFwdChunk], s_b[kFwdChunk], s_d[kFwdChunk];
-  __shared__ float s_ca[ORIENTED ? kFwdChunk : 1], s_sa[ORIENTED ? kFwdChunk : 1],
-      s_rr[ORIENTED ? kFwdChunk : 1];
+  constexpr int kPer = MAXT > 512 ? 1 : 2;  // records a lane gathers per step
+  constexpr int kStep = 32 * kPer;
+  constexpr int kBatch = MAXT > 512 ? 2 : 4;
+  constexpr int kBC = BC > 0 ? BC : 32;
+  constexpr unsigned kPiece = kBC == 32 ? 0xFFFFFFFFu : (1u << kBC) - 1u;
+  extern __shared__ float4 smem[];
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
-  const float px = static_cast<float>((t % p.tiles_x) * p.tile_w + tid % p.tile_w) + 0.5f;
-  const float py = static_cast<float>((t / p.tiles_x) * p.tile_h + tid / p.tile_w) + 0.5f;
+  const int lane = tid & 31;
+  const int tp = blockDim.x;
   const int start = offsets[t];
   const int end = offsets[t + 1];
+  int lx, ly;
+  warp_cull::tile_pixel(tid, p.tile_w, p.tile_h, lx, ly);
+  const int pix = ly * p.tile_w + lx;  // row-major in the tile
+  Pixel q;
+  q.px = static_cast<float>((t % p.tiles_x) * p.tile_w + lx) + 0.5f;
+  q.py = static_cast<float>((t / p.tiles_x) * p.tile_h + ly) + 0.5f;
+  q.trans = 1.0f;
+  q.cr = q.cg = q.cb = q.cd = 0.0f;
 
-  float trans = 1.0f;
-  float cr = 0.0f, cg = 0.0f, cb = 0.0f, cd = 0.0f;
-  for (int base = start; base < end; base += kFwdChunk) {
-    const int n = min(kFwdChunk, end - base);
-    for (int j = tid; j < n; j += blockDim.x) {
-      const Rec v = decode_rec<ORIENTED>(
-          planes + static_cast<size_t>(pair_rank[base + j]) * (ORIENTED ? 10 : 8), p);
-      s_cx[j] = v.cx;
-      s_cy[j] = v.cy;
-      s_op[j] = v.op;
-      s_cut2[j] = v.cut2;
-      s_inv_s2[j] = v.inv_s2;
-      s_r[j] = v.cr;
-      s_g[j] = v.cg;
-      s_b[j] = v.cb;
-      s_d[j] = v.d;
-      if (ORIENTED) {
-        s_ca[j] = v.ca;
-        s_sa[j] = v.sa;
-        s_rr[j] = v.rr;
-      }
-    }
-    __syncthreads();
-    auto blend = [&](int j) {
-      float u, vr;
-      const float d2 = dist2_of<ORIENTED>(px - s_cx[j], py - s_cy[j],
-                                          ORIENTED ? s_ca[j] : 0.0f,
-                                          ORIENTED ? s_sa[j] : 0.0f,
-                                          ORIENTED ? s_rr[j] : 1.0f, u, vr);
-      if (d2 <= s_cut2[j]) {
-        const float shape = expf(p.neg_inv_2sigma2 * (d2 * s_inv_s2[j]));
-        const float a = fminf(s_op[j] * shape, p.alpha_cap);
-        const float w = a * trans;
-        cr += s_r[j] * w;
-        cg += s_g[j] * w;
-        cb += s_b[j] * w;
-        cd += s_d[j] * w;
-        trans *= 1.0f - a;
+  if (start < end) {  // the whole block agrees
+    // this pixel's column of its tile's first residual row
+    float* const ts = t_start + (BC > 0 ? chunk_row(t, start, kBC) * tp + pix : 0);
+    // two staging slots per warp, taken in turn
+    float4* const slots = smem + (tid >> 5) * (2 * 32 * kFwdVecs);
+    int turn = 0;
+
+    // the gather pipeline: rows of this step (w0) and the next (w1) in
+    // registers, ranks of the step after (rk)
+    int rk[kPer];
+    Row<ORIENTED> w0[kPer], w1[kPer];
+    auto load_ranks = [&](int base) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int idx = base + 32 * i + lane;
+        rk[i] = idx < end ? __ldg(pair_rank + idx) : -1;
       }
     };
-    if (BC == 0) {
-      for (int j = 0; j < n; ++j) blend(j);
-    } else {
-      // in runs of BC records (kFwdChunk is a multiple of BC), so that the
-      // residual costs the record loop no test; a full run is unrolled, which
-      // lets its records' shared-memory loads overlap (it made this form
-      // faster than the plain loop, residual and all)
-      constexpr int kRun = BC > 0 ? BC : 1;
-      float* ts = t_start + (chunk_row(t, start, kRun) + (base - start) / kRun) * blockDim.x + tid;
-      for (int j0 = 0; j0 < n; j0 += kRun, ts += blockDim.x) {
-        __stcs(ts, trans);  // written once, read once by the backward: streaming
-        if (j0 + kRun <= n) {
+    auto load_rows = [&](Row<ORIENTED>(&w)[kPer]) {
 #pragma unroll
-          for (int j = 0; j < kRun; ++j) blend(j0 + j);
+      for (int i = 0; i < kPer; ++i) {
+        if (rk[i] >= 0) load_row<ORIENTED>(planes, rk[i], w[i]);
+      }
+    };
+    load_ranks(start);
+    load_rows(w0);
+    load_ranks(start + kStep);
+    load_rows(w1);
+    load_ranks(start + 2 * kStep);
+
+    // the centres of the warp's pixels still alive: a pixel at T = +0 takes
+    // nothing more, so a record that misses this rectangle changes no output
+    unsigned alive_mask = kFull;
+    Rect rc = warp_cull::warp_rect(q.px, q.py, true);
+    int done = 0;  // records behind the warp when it stops
+    for (int base = start; base < end; base += kStep) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int g0 = base + 32 * i;  // this word's first record
+        if (g0 >= end) break;
+        Reach v;
+        bool lv = false;
+        if (g0 + lane < end) {
+          v = decode_reach<ORIENTED>(w0[i], p);
+          lv = warp_cull::cull_live<false>(
+              v.cx, v.cy, warp_cull::cull_bound<ORIENTED, false>(v.cut2, v.rr), rc);
+        }
+        const unsigned live = __ballot_sync(kFull, lv);
+        const Stage s = stage_at(slots + (turn & 1) * (32 * kFwdVecs));
+        if (live != 0u) {
+          ++turn;
+          if (lv) decode_store<ORIENTED>(s, lane, w0[i], v);
+          // publishes the slot; the slot written next was last read before
+          // this barrier
+          __syncwarp();
+        }
+        if (BC == 0) {
+          if (live != 0u) composite_live<ORIENTED, kBatch>(s, live, q, p);
         } else {
-          for (int j = j0; j < n; ++j) blend(j);
+          // the word's chunks in order: each chunk's row, then its records
+#pragma unroll
+          for (int k = 0; k < 32 / kBC; ++k) {
+            const int rel = g0 - start + k * kBC;
+            if (rel >= end - start) break;
+            __stcs(ts + static_cast<size_t>(rel / kBC) * tp, q.trans);
+            const unsigned piece = live & (kPiece << (k * kBC));
+            if (piece != 0u) composite_live<ORIENTED, kBatch>(s, piece, q, p);
+          }
+        }
+        if (live != 0u) {
+          const unsigned now = __ballot_sync(kFull, q.trans > 0.0f);
+          if (now != alive_mask) {  // pixels stopped: the rectangle shrinks
+            alive_mask = now;
+            if (now == 0u) {
+              done = g0 - start + 32;
+              break;
+            }
+            rc = warp_cull::warp_rect(q.px, q.py, q.trans > 0.0f);
+          }
         }
       }
+      if (alive_mask == 0u) break;
+      // advance: the next step's rows have been in flight under this one
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) w0[i] = w1[i];
+      load_rows(w1);
+      load_ranks(base + 3 * kStep);
     }
-    __syncthreads();  // before the next chunk overwrites the staging
+    // every pixel of the warp stopped: the rows of the chunks left hold its
+    // T, which is 0
+    if (BC > 0 && alive_mask == 0u) {
+      const int nchunks = (end - start + kBC - 1) / kBC;
+      for (int c = done / kBC; c < nchunks; ++c) __stcs(ts + static_cast<size_t>(c) * tp, 0.0f);
+    }
   }
 
-  const size_t pix = static_cast<size_t>(t) * blockDim.x + tid;
-  tile_color[pix * 3 + 0] = cr;
-  tile_color[pix * 3 + 1] = cg;
-  tile_color[pix * 3 + 2] = cb;
-  tile_alpha[pix] = 1.0f - trans;
-  tile_depth[pix] = cd;
+  const size_t at = static_cast<size_t>(t) * tp + pix;
+  tile_color[at * 3 + 0] = q.cr;
+  tile_color[at * 3 + 1] = q.cg;
+  tile_color[at * 3 + 2] = q.cb;
+  tile_alpha[at] = 1.0f - q.trans;
+  tile_depth[at] = q.cd;
 }
 
 // A decoded record in shared memory: four float4 and its gradient slot.
@@ -603,16 +856,49 @@ cudaError_t dispatch_bwd(int oriented, int threads, F&& f) {
 #undef TBD_CASE
 }
 
+// The forward's dynamic shared memory: two staging slots of 32 records a warp.
+size_t fwd_smem(int threads) {
+  return 2 * static_cast<size_t>(threads) * kFwdVecs * sizeof(float4);
+}
+
+// Pick the forward's instantiation for (oriented, bc, threads); bc 0: no
+// residual.
+template <typename F>
+cudaError_t dispatch_fwd(int oriented, int bc, int threads, F&& f) {
+#define TBD_BC(O, M)                                  \
+  if (bc == 0) return f(diff_fwd_kernel<O, 0, M>);   \
+  if (bc == 8) return f(diff_fwd_kernel<O, 8, M>);   \
+  if (bc == 16) return f(diff_fwd_kernel<O, 16, M>); \
+  return f(diff_fwd_kernel<O, 32, M>);
+  if (oriented) {
+    if (threads <= 512) { TBD_BC(true, 512) }
+    TBD_BC(true, 1024)
+  }
+  if (threads <= 512) { TBD_BC(false, 512) }
+  TBD_BC(false, 1024)
+#undef TBD_BC
+}
+
+// Lift a kernel's dynamic shared memory limit where it needs more than the
+// 48 KB it gets without asking.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 }  // namespace
 
 // Forward: composite every tile.  Device pointers: offsets (T+1) and
-// pair_rank (P) int32, planes (N, nf) float32 in canonical order; outputs
-// tile_color (T, tp, 3), tile_alpha (T, tp), tile_depth (T, tp) float32,
-// tp = tile_w * tile_h, a multiple of 32 and at most 1024.  With t_start
-// (P / bwd_chunk + T rows of tp float32) non-null it also writes each
-// pixel's transmittance at the start of every backward chunk (tile t's
-// chunks from row offsets[t] / bwd_chunk + t); bwd_chunk is 8, 16 or 32.
-// Launches on `stream` without synchronising; returns the CUDA error code.
+// pair_rank (P) int32, planes (N, nf) float32 in canonical order, 16-byte
+// aligned; outputs tile_color (T, tp, 3), tile_alpha (T, tp), tile_depth
+// (T, tp) float32, tp = tile_w * tile_h, a multiple of 32 and at most 1024.
+// With t_start (P / bwd_chunk + T rows of tp float32) non-null it also
+// writes each pixel's transmittance at the start of every backward chunk
+// (tile t's chunks from row offsets[t] / bwd_chunk + t); bwd_chunk is 8, 16
+// or 32.  Launches on `stream` without synchronising; returns the CUDA
+// error code.
 extern "C" int tile_blend_diff_forward(const int* offsets, const int* pair_rank,
                                        const float* planes, float* tile_color,
                                        float* tile_alpha, float* tile_depth,
@@ -623,27 +909,20 @@ extern "C" int tile_blend_diff_forward(const int* offsets, const int* pair_rank,
   const DiffParams p = make_params(tiles_x, tile_w, tile_h, min_r, margin2,
                                    neg_inv_2sigma2, alpha_cap);
   const int threads = tile_w * tile_h;
-  if (!valid_chunk(bwd_chunk)) {
+  if (!valid_chunk(bwd_chunk) || (reinterpret_cast<uintptr_t>(planes) & 15u) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const size_t smem = fwd_smem(threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TBD_FWD(O, C)                                                                       \
-  diff_fwd_kernel<O, C><<<num_tiles, threads, 0, s>>>(offsets, pair_rank, planes, tile_color, \
-                                                      tile_alpha, tile_depth, t_start, p)
   const int bc = t_start != nullptr ? bwd_chunk : 0;
-  if (oriented) {
-    if (bc == 0) TBD_FWD(true, 0);
-    else if (bc == 8) TBD_FWD(true, 8);
-    else if (bc == 16) TBD_FWD(true, 16);
-    else TBD_FWD(true, 32);
-  } else {
-    if (bc == 0) TBD_FWD(false, 0);
-    else if (bc == 8) TBD_FWD(false, 8);
-    else if (bc == 16) TBD_FWD(false, 16);
-    else TBD_FWD(false, 32);
-  }
-#undef TBD_FWD
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = dispatch_fwd(oriented, bc, threads, [&](auto kernel) {
+    const cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<num_tiles, threads, smem, s>>>(offsets, pair_rank, planes, tile_color, tile_alpha,
+                                            tile_depth, t_start, p);
+    return cudaGetLastError();
+  });
+  return static_cast<int>(err);
 }
 
 // Backward: per-pair gradient rows.  Inputs as the forward's plus
@@ -666,11 +945,8 @@ extern "C" int tile_blend_diff_backward(
   const size_t smem = bwd_smem(threads, oriented, bwd_chunk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dispatch_bwd(oriented, threads, [&](auto kernel) {
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (e != cudaSuccess) return e;
-    }
+    const cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
     kernel<<<num_tiles, threads, smem, s>>>(offsets, pair_rank, pair_slot, planes,
                                             g_color, g_alpha, g_depth, t_start, grad_slots,
                                             bwd_chunk, p);
@@ -679,20 +955,17 @@ extern "C" int tile_blend_diff_backward(
   return static_cast<int>(err);
 }
 
-// What the backward's instantiation gets at this tile shape and chunk:
-// out[0] registers per thread, out[1] resident CTAs per SM, out[2] SMs,
-// out[3] dynamic shared memory in bytes.  Host pointer.
+// What an instantiation gets at this tile shape and chunk: the backward's,
+// or with `forward` the forward's with its residual: out[0] registers per
+// thread, out[1] resident CTAs per SM, out[2] SMs, out[3] dynamic shared
+// memory in bytes.  Host pointer.
 extern "C" int tile_blend_diff_launch_info(int oriented, int tile_w, int tile_h,
-                                           int bwd_chunk, int* out) {
+                                           int bwd_chunk, int forward, int* out) {
   const int threads = tile_w * tile_h;
-  const size_t smem = bwd_smem(threads, oriented, bwd_chunk);
-  const cudaError_t err = dispatch_bwd(oriented, threads, [&](auto kernel) {
-    cudaError_t e = cudaSuccess;
-    if (smem > 48 * 1024) {
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-      if (e != cudaSuccess) return e;
-    }
+  const size_t smem = forward ? fwd_smem(threads) : bwd_smem(threads, oriented, bwd_chunk);
+  auto query = [&](auto kernel) {
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
     cudaFuncAttributes attr;
     if ((e = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return e;
     int device = 0;
@@ -702,6 +975,8 @@ extern "C" int tile_blend_diff_launch_info(int oriented, int tile_w, int tile_h,
     out[0] = attr.numRegs;
     out[3] = static_cast<int>(smem);
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel, threads, smem);
-  });
+  };
+  const cudaError_t err = forward ? dispatch_fwd(oriented, bwd_chunk, threads, query)
+                                  : dispatch_bwd(oriented, threads, query);
   return static_cast<int>(err);
 }

@@ -22,14 +22,16 @@ recurrences, without the TPU kernel's division by 1 - alpha (see the csrc
 header), in one pass over the pair stream: when a gradient will be asked
 for, the forward kernel also leaves each pixel's transmittance at the start
 of every backward chunk (`bwd_chunk(cfg)` records), and the backward walks a
-tile's chunks last to first from those.  `blend_adjoint_plain` is that
-recurrence in plain PyTorch; the tests hold it against autograd and the JAX
-package, nothing on the card's path calls it.  Gradient routing is
-deterministic: the
-backward kernel writes each pair's row at its pre-sort slot `c * n + rank`
-(unique, so an assignment), the cap slots of a record are summed by a
-reshape, and ranks go back to input order through `src`.  No float atomics
-anywhere, so two runs give the same bits.
+tile's chunks last to first from those.  `diff_fold_plain` is the forward's
+sequential fold and `diff_residuals_plain` its residual, in the kernel's row
+layout (`residual_row0`); `blend_adjoint_plain` is the backward's recurrence
+on that residual, in plain PyTorch.  The tests hold them against the
+kernels, autograd and the JAX package; nothing on the card's path calls
+them.  Gradient routing is deterministic: the backward kernel writes each
+pair's row at its pre-sort slot `c * n + rank` (unique, so an assignment),
+the cap slots of a record are summed by a reshape, and ranks go back to
+input order through `src`.  No float atomics anywhere, so two runs give the
+same bits.
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ def _kernel_fns():
         fwd.restype = ctypes.c_int
         bwd.argtypes = [ctypes.c_void_p] * 9 + tail
         bwd.restype = ctypes.c_int
-        lib.tile_blend_diff_launch_info.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.tile_blend_diff_launch_info.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.tile_blend_diff_launch_info.restype = ctypes.c_int
     return fwd, bwd
 
@@ -79,16 +81,18 @@ def bwd_chunk(cfg: RenderConfig) -> int:
     return 32 if fit >= 32 else 16 if fit >= 16 else 8
 
 
-def launch_info(cfg: RenderConfig) -> dict:
-    """What the backward kernel gets on the current CUDA device at cfg's
-    profile and tile shape: registers per thread, resident CTAs per SM (the
-    occupancy query's answer), SMs, dynamic shared memory bytes, its chunk."""
+def launch_info(cfg: RenderConfig, forward: bool = False) -> dict:
+    """What the backward kernel (or with `forward`, the forward kernel as the
+    training step launches it, residuals and all) gets on the current CUDA
+    device at cfg's profile and tile shape: registers per thread, resident
+    CTAs per SM (the occupancy query's answer), SMs, dynamic shared memory
+    bytes, the backward's chunk."""
     _kernel_fns()
     from .build import load_library
 
     out = (ctypes.c_int * 4)()
     err = load_library("tile_blend_diff").tile_blend_diff_launch_info(
-        int(cfg.oriented), cfg.tile_w, cfg.tile_h, bwd_chunk(cfg), out)
+        int(cfg.oriented), cfg.tile_w, cfg.tile_h, bwd_chunk(cfg), int(forward), out)
     if err != 0:
         raise RuntimeError(f"tile_blend_diff_launch_info failed: CUDA error {err}")
     regs, per_sm, sms, smem = out
@@ -122,9 +126,33 @@ def _scalars(cfg: RenderConfig):
             -0.5 / (cfg.sigma * cfg.sigma), ALPHA_CAP)
 
 
+def residual_rows(binned: Binned, cfg: RenderConfig, chunk: int) -> int:
+    """Rows of the forward's residual for `chunk`-record chunks: room for the
+    chunks of every tile of a stream of up to n * cap pairs."""
+    return (binned["planes"].shape[0] * cfg.tiles_per_splat_cap) // chunk + cfg.num_tiles + 1
+
+
+def residual_row0(binned: Binned, chunk: int) -> torch.Tensor:
+    """(T,) int64: the residual row of each tile's first chunk,
+    offsets[t] // chunk + t (csrc chunk_row); tile t's chunk c is row
+    row0[t] + c.  No two tiles' rows overlap."""
+    offsets = binned["offsets"].to(torch.int64)
+    return offsets[:-1] // chunk + torch.arange(offsets.numel() - 1, device=offsets.device)
+
+
+def residual_rows_used(binned: Binned, chunk: int) -> torch.Tensor:
+    """The residual rows that hold a chunk of some tile, ascending (int64)."""
+    counts = (binned["offsets"][1:] - binned["offsets"][:-1]).to(torch.int64)
+    n = (counts + chunk - 1) // chunk
+    first = torch.repeat_interleave(residual_row0(binned, chunk), n)
+    base = torch.repeat_interleave(torch.cumsum(n, 0) - n, n)
+    return first + torch.arange(first.numel(), device=first.device) - base
+
+
 def _aligned_planes(binned: Binned) -> torch.Tensor:
     """The record planes as the kernels read them: contiguous, and 16-byte
-    aligned for the backward's asynchronous row copies."""
+    aligned for the forward's 16-byte row loads and the backward's
+    asynchronous row copies."""
     planes = binned["planes"].detach().contiguous()
     return planes if planes.data_ptr() % 16 == 0 else planes.clone()
 
@@ -145,8 +173,7 @@ def diff_forward(
     planes = _aligned_planes(binned)
     t_start = None
     if residuals:
-        # at most n * cap pairs: rows for every tile's chunks (csrc chunk_row)
-        rows = (planes.shape[0] * cfg.tiles_per_splat_cap) // bwd_chunk(cfg) + t + 1
+        rows = residual_rows(binned, cfg, bwd_chunk(cfg))
         t_start = torch.empty((rows, tp), dtype=torch.float32, device=device)
     tile_color = torch.empty((t, tp, 3), dtype=torch.float32, device=device)
     tile_alpha = torch.empty((t, tp), dtype=torch.float32, device=device)
@@ -181,7 +208,7 @@ def diff_backward(
     device = _check_launchable(binned, cfg)
     n, nf = binned["planes"].shape
     cap = cfg.tiles_per_splat_cap
-    rows = (n * cap) // bwd_chunk(cfg) + cfg.num_tiles + 1
+    rows = residual_rows(binned, cfg, bwd_chunk(cfg))
     if (t_start.device != device or t_start.dtype != torch.float32
             or t_start.shape != (rows, cfg.tile_pixels) or not t_start.is_contiguous()):
         raise ValueError(
@@ -257,6 +284,17 @@ def blend_planes(
     if device.type != "cuda":
         raise ValueError(f"no differentiable tile-blend kernel for device {device}")
     return _BlendPlanes.apply(cfg, *planes)
+
+
+def diff_cut2(planes: torch.Tensor, cfg: RenderConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cut2, rr) of (N, nf) record planes as the kernels stage them for the
+    warp culling test (`tile_blend.cull_live_plain`): the cutoff on dist2,
+    -1 below min_screen_radius, and the ellipse's ratio (1 when isotropic)."""
+    r = planes[:, 2]
+    rr = maximum(planes[:, 8], 1e-3) if cfg.oriented else torch.ones_like(r)
+    scale = r * rr if cfg.oriented else r
+    margin2 = cfg.bounds_margin * cfg.bounds_margin
+    return torch.where(r >= cfg.min_screen_radius, margin2 * (scale * scale), -1.0), rr
 
 
 def _pair_alpha(cfg: RenderConfig, rec: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
@@ -353,6 +391,76 @@ def blend_binned_plain(binned: Binned, cfg: RenderConfig) -> TileOutputs:
     return color, 1.0 - trans, depth_acc
 
 
+def diff_fold_plain(
+    binned: Binned, cfg: RenderConfig, chunk: int = 0, stop_at_zero: bool = False
+) -> Tuple[torch.Tensor, ...]:
+    """The forward kernel's fold in plain float32 PyTorch: per pixel, record
+    after record in run order, w = a T, C += rgb w, D += d w, T *= 1 - a,
+    with the kernel's alpha (`_pair_alpha`).  Returns (tile_color, tile_alpha,
+    tile_depth) and, with `chunk` > 0, the residual: t_start in the
+    kernel's row layout (`residual_row0`, `residual_rows` rows), T before
+    the first record of every `chunk` records; rows no chunk uses are 0.
+
+    stop_at_zero: a pixel whose T is exactly 0 takes nothing more, as the
+    kernel's pixels stop; with finite planes that changes no bit.
+
+    The tiles advance together, one record index per step, so the Python
+    loop runs as many steps as the heaviest tile has records."""
+    planes = binned["planes"].detach()
+    device = planes.device
+    num_tiles, tp, tw = cfg.num_tiles, cfg.tile_pixels, cfg.tile_w
+    offsets = binned["offsets"].to(torch.int64)
+    counts = offsets[1:] - offsets[:-1]
+    # the state lives in tile order heaviest first: the tiles still walking
+    # at record index k are a prefix
+    order = torch.sort(counts, descending=True, stable=True).indices
+    left = counts[order].tolist()
+    lane = torch.arange(tp, device=device)
+    lx = (lane % tw).to(torch.float32) + 0.5
+    ly = (lane // tw).to(torch.float32) + 0.5
+    px = ((order % cfg.tiles_x) * tw).to(torch.float32)[:, None] + lx
+    py = ((order // cfg.tiles_x) * cfg.tile_h).to(torch.float32)[:, None] + ly
+    first = offsets[:-1][order]
+    f32 = dict(dtype=torch.float32, device=device)
+    color = torch.zeros((num_tiles, tp, 3), **f32)
+    depth = torch.zeros((num_tiles, tp), **f32)
+    trans = torch.ones((num_tiles, tp), **f32)
+    t_start = None
+    if chunk:
+        t_start = torch.zeros((residual_rows(binned, cfg, chunk), tp), **f32)
+        row0 = residual_row0(binned, chunk)[order]
+    walking = num_tiles
+    for k in range(left[0] if left else 0):
+        while left[walking - 1] <= k:
+            walking -= 1
+        m = walking
+        if chunk and k % chunk == 0:
+            t_start[row0[:m] + k // chunk] = trans[:m]
+        rec = planes.index_select(0, binned["pair_rank"][first[:m] + k].to(torch.int64))
+        _, a = _pair_alpha(cfg, rec, px[:m], py[:m])  # (m, tp)
+        w = a * trans[:m]
+        c_new = color[:m] + rec[:, None, 4:7] * w[:, :, None]
+        d_new = depth[:m] + rec[:, -1:] * w
+        t_new = trans[:m] * (1.0 - a)
+        if stop_at_zero:
+            stopped = trans[:m] == 0.0
+            c_new = torch.where(stopped[:, :, None], color[:m], c_new)
+            d_new = torch.where(stopped, depth[:m], d_new)
+            t_new = torch.where(stopped, trans[:m], t_new)
+        color[:m], depth[:m], trans[:m] = c_new, d_new, t_new
+    back = torch.empty_like(order)
+    back[order] = torch.arange(num_tiles, device=device)
+    outs = (color[back], 1.0 - trans[back], depth[back])
+    return outs + (t_start,) if chunk else outs
+
+
+def diff_residuals_plain(binned: Binned, cfg: RenderConfig, chunk: int) -> torch.Tensor:
+    """The forward kernel's residual in plain PyTorch: every pixel's T at
+    the start of each `chunk` records, a sequential float32 product, at row
+    offsets[t] // chunk + t + c of tile t's chunk c (`diff_fold_plain`)."""
+    return diff_fold_plain(binned, cfg, chunk)[3]
+
+
 def blend_adjoint_plain(
     binned: Binned, cfg: RenderConfig, cotangents: TileOutputs, chunk: int = 32
 ) -> torch.Tensor:
@@ -360,14 +468,14 @@ def blend_adjoint_plain(
     gradients of sum(outputs * cotangents) with respect to
     binned["planes"], in rank order.
 
-    Per tile: the forward's sequential products leave every pixel's T at
-    the start of each `chunk` records; the chunks are walked last to first
-    with R (what follows a record, seen through it) and Q (the product of
-    1 - a behind it) carried along; inside a chunk T_i is rebuilt forward
-    from the chunk's start and the adjoint dL/da_i = T_i (w_i - R_i + gA
-    Q_i) runs back to front, chained to the fields term for term as
-    csrc/tile_blend_diff.cu does.  T_i is the same product in the same
-    order whatever the chunk, so the result does not depend on it.  A
+    Per tile: the forward's residual (`diff_residuals_plain`) holds every
+    pixel's T at the start of each `chunk` records; the chunks are walked
+    last to first with R (what follows a record, seen through it) and Q
+    (the product of 1 - a behind it) carried along; inside a chunk T_i is
+    rebuilt forward from the chunk's start and the adjoint dL/da_i = T_i
+    (w_i - R_i + gA Q_i) runs back to front, chained to the fields term for
+    term as csrc/tile_blend_diff.cu does.  T_i is the same product in the
+    same order whatever the chunk, so the result does not depend on it.  A
     Python loop over every record of every tile: for tests at small sizes.
     """
     planes = binned["planes"].detach()
@@ -380,6 +488,8 @@ def blend_adjoint_plain(
     lx = (lane % tw).to(torch.float32) + 0.5
     ly = (lane // tw).to(torch.float32) + 0.5
     offsets = binned["offsets"].tolist()
+    t_start = diff_residuals_plain(binned, cfg, chunk)
+    row0 = residual_row0(binned, chunk).tolist()
     grads = torch.zeros_like(planes)
     for t in range(cfg.num_tiles):
         lo, hi = offsets[t], offsets[t + 1]
@@ -413,19 +523,13 @@ def blend_adjoint_plain(
         gc, ga_out, gd = g_color[t], g_alpha[t], g_depth[t]
         w_pan = ((col(4) * gc[:, 0] + col(5) * gc[:, 1]) + col(6) * gc[:, 2]) + d * gd
 
-        # the forward's residual: T at the start of every chunk
-        trans = torch.ones(tp, dtype=torch.float32, device=planes.device)
-        t_start = []
-        for i in range(m):
-            if i % chunk == 0:
-                t_start.append(trans)
-            trans = trans * (1.0 - a[i])
         t_i = torch.empty_like(a)
         r_i, q_i = torch.empty_like(a), torch.empty_like(a)
-        r_acc, q_acc = torch.zeros_like(trans), torch.ones_like(trans)
-        for c in range(len(t_start) - 1, -1, -1):
+        r_acc = torch.zeros(tp, dtype=torch.float32, device=planes.device)
+        q_acc = torch.ones_like(r_acc)
+        for c in range((m + chunk - 1) // chunk - 1, -1, -1):
             i0, i1 = c * chunk, min(m, (c + 1) * chunk)
-            trans = t_start[c]
+            trans = t_start[row0[t] + c]  # the forward's residual
             for i in range(i0, i1):  # T_i forward inside the chunk
                 t_i[i] = trans
                 trans = trans * (1.0 - a[i])

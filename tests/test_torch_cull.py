@@ -9,7 +9,13 @@ float32 operations in the same order, `warp_pixels` the kernels' pixel to
 lane mapping, `staged_cut2` the cutoff as the kernels stage it.  Seeded
 numpy inputs for every profile and tile shape, and a `hypothesis` search
 that puts the centre on, and a few ulps around, the distance at which the
-warp's nearest pixel leaves the support.
+warp's nearest pixel leaves the support.  The differentiable blend's
+kernels run the same test on `bin_planes_diff` streams, against the diff
+twin's alphas.
+
+The forward kernel's residual (each pixel's T at the start of every
+backward chunk) in its plain mirror `diff_residuals_plain`: its row layout,
+and the kernel's exact-zero stop, which changes no bit of any output.
 """
 
 import numpy as np
@@ -22,7 +28,11 @@ import splat_renderer_tpu_torch as tpt
 from splat_renderer_tpu_torch.ops.tile_blend import (
     cull_live_plain, nonempty_tiles, staged_cut2, warp_pixels, warp_rects,
 )
-from splat_renderer_tpu_torch.ops.tile_blend_diff import bwd_chunk
+from splat_renderer_tpu_torch.ops.tile_blend_diff import (
+    _PLANE_NAMES, _pair_alpha, blend_binned_plain, bwd_chunk, diff_cut2, diff_fold_plain,
+    diff_residuals_plain, residual_row0,
+)
+from splat_renderer_tpu_torch.render.binning import bin_planes_diff
 from splat_renderer_tpu_torch.render.blend import splat_alpha_planes
 
 PROFILES = {
@@ -65,9 +75,42 @@ def _missed(cfg, cx, cy, r, op, ang, ratio, ox, oy):
     return int((touched & ~live).sum()), int(live.sum()), live.numel(), int(touched.sum())
 
 
-@pytest.mark.parametrize("tiles", sorted(TILES))
-@pytest.mark.parametrize("profile", sorted(PROFILES))
-def test_cull_never_drops_a_contributing_record(profile, tiles):
+def _missed_diff(cfg, cx, cy, r, op, ang, ratio, ox, oy):
+    """`_missed` on the tile at (ox, oy) of a `bin_planes_diff` stream, with
+    the diff twin's alphas and the diff kernels' staged cutoff."""
+    f32 = lambda v: torch.as_tensor(np.asarray(v, np.float32))  # noqa: E731
+    n = len(cx)
+    cols = dict(zip(_PLANE_NAMES, map(f32, (cx, cy, r, op, np.full(n, 0.5), np.full(n, 0.5),
+                                            np.full(n, 0.5), ang, ratio,
+                                            np.linspace(1.0, 9.0, n)))))
+    binned = bin_planes_diff(cols, cfg)
+    t = (oy // cfg.tile_h) * cfg.tiles_x + ox // cfg.tile_w
+    lo, hi = int(binned["offsets"][t]), int(binned["offsets"][t + 1])
+    rec = binned["planes"].index_select(0, binned["pair_rank"][lo:hi].long())
+    pix = torch.arange(cfg.tile_pixels)
+    px = (ox + pix % cfg.tile_w).to(torch.float32) + 0.5
+    py = (oy + pix // cfg.tile_w).to(torch.float32) + 0.5
+    _, alpha = _pair_alpha(cfg, rec, px[None], py[None])  # (pairs, tp)
+    touched = (alpha[:, warp_pixels(cfg)] > 0).any(-1)  # (pairs, warps)
+    rect = warp_rects(cfg)
+    cut2, rr = diff_cut2(rec, cfg)
+    col = lambda v: v[:, None]  # noqa: E731
+    live = cull_live_plain(col(rec[:, 0]), col(rec[:, 1]), col(cut2), col(rr),
+                           ox + rect[None, :, 0], ox + rect[None, :, 1],
+                           oy + rect[None, :, 2], oy + rect[None, :, 3], cfg.oriented, False)
+    return int((touched & ~live).sum()), int(live.sum()), live.numel(), int(touched.sum())
+
+
+# the packed-word streams of every profile and tile shape; the
+# differentiable blend's streams of its two profiles
+CULL_CASES = [pytest.param("words", p, t, id=f"{p}-{t}") for p in sorted(PROFILES)
+              for t in sorted(TILES)] + [
+    pytest.param("diff", p, t, id=f"diff-{p}-{t}") for p in ("isotropic", "oriented")
+    for t in ("16x16", "32x16")]
+
+
+@pytest.mark.parametrize("stream,profile,tiles", CULL_CASES)
+def test_cull_never_drops_a_contributing_record(stream, profile, tiles):
     cfg = _config(profile, tiles)
     rng = np.random.default_rng(sorted(PROFILES).index(profile) * 7 + sorted(TILES).index(tiles))
     n = 6000
@@ -81,7 +124,8 @@ def test_cull_never_drops_a_contributing_record(profile, tiles):
     ang = rng.uniform(-np.pi, np.pi, n)
     ratio = rng.uniform(0.0, 1.0, n)
     ratio[100:150] = 0.0  # clamped to 1e-3: the thinnest ellipse
-    missed, live, total, touched = _missed(cfg, cx, cy, r, op, ang, ratio, ox, oy)
+    missed_of = _missed if stream == "words" else _missed_diff
+    missed, live, total, touched = missed_of(cfg, cx, cy, r, op, ang, ratio, ox, oy)
     assert missed == 0
     assert touched > 0
     # the test is not vacuous: it does cull, and what it keeps is not far
@@ -213,3 +257,87 @@ def test_cull_against_the_pixels_still_alive(profile, tiles):
                            cfg.oriented, cfg.opaque and cfg.quad)
     assert int((touched & ~live).sum()) == 0
     assert int(touched.sum()) > 0 and int(live.sum()) < 0.7 * live.numel()
+
+
+# ---- the forward kernel's residual and its exact-zero stop ----
+
+def _diff_stream(profile, n=600, width=96, height=64, seed=3):
+    cfg = tpt.RenderConfig(width=width, height=height, tiles_per_splat_cap=8, **PROFILES[profile])
+    rng = np.random.default_rng(seed)
+    cols = [rng.uniform(-4, width + 4, n), rng.uniform(-4, height + 4, n),
+            rng.uniform(0.3, 5.0, n), rng.uniform(0.2, 1.0, n),
+            rng.uniform(0, 1, n), rng.uniform(0, 1, n), rng.uniform(0, 1, n),
+            rng.uniform(-np.pi, np.pi, n), rng.uniform(0.1, 1.0, n), rng.uniform(1, 9, n)]
+    planes = {k: torch.tensor(c, dtype=torch.float32) for k, c in zip(_PLANE_NAMES, cols)}
+    return cfg, bin_planes_diff(planes, cfg)
+
+
+@pytest.mark.parametrize("profile", ["isotropic", "oriented"])
+def test_residual_layout_is_one_product_for_every_chunk(profile):
+    """Each nonempty tile's first row is 1, and the row of a record index
+    holds the same bits whatever the chunk."""
+    cfg, binned = _diff_stream(profile, n=1500)
+    counts = binned["counts"].tolist()
+    assert max(counts) > 64
+    res = {c: (diff_residuals_plain(binned, cfg, c), residual_row0(binned, c)) for c in (8, 16, 32)}
+    for t, cnt in enumerate(counts):
+        if cnt == 0:
+            continue
+        for c, (rows, row0) in res.items():
+            assert bool((rows[int(row0[t])] == 1.0).all())
+        for i in range(0, cnt, 32):
+            want = res[32][0][int(res[32][1][t]) + i // 32]
+            for c in (8, 16):
+                rows, row0 = res[c]
+                assert torch.equal(rows[int(row0[t]) + i // c], want), (t, i, c)
+
+
+def test_residual_last_product_is_one_minus_alpha():
+    """With one-record chunks the last row of a tile times 1 - a of its last
+    record is its T: 1 - alpha of the twin within 1e-6, and the fold's."""
+    cfg, binned = _diff_stream("isotropic", n=300)
+    rows = diff_residuals_plain(binned, cfg, 1)
+    row0 = residual_row0(binned, 1)
+    color, alpha, depth = blend_binned_plain(binned, cfg)
+    fold = diff_fold_plain(binned, cfg)
+    lane = torch.arange(cfg.tile_pixels)
+    for t, cnt in enumerate(binned["counts"].tolist()):
+        if cnt == 0:
+            continue
+        last = binned["planes"][binned["pair_rank"][int(binned["offsets"][t + 1]) - 1].long()]
+        px = float((t % cfg.tiles_x) * cfg.tile_w) + (lane % cfg.tile_w).float() + 0.5
+        py = float((t // cfg.tiles_x) * cfg.tile_h) + (lane // cfg.tile_w).float() + 0.5
+        _, a = _pair_alpha(cfg, last[None], px[None], py[None])
+        trans = rows[int(row0[t]) + cnt - 1] * (1.0 - a[0])
+        assert float((trans - (1.0 - alpha[t])).abs().max()) <= 1e-6
+        assert torch.equal(1.0 - trans, fold[1][t])
+    for got, want in zip(fold, (color, alpha, depth)):
+        assert float((got - want).abs().max()) <= 1e-6
+
+
+def _deep_tile(profile, n=400):
+    """One 16x16 tile under n opacity-1 records wide enough to reach all of
+    it: every pixel's T underflows to exactly 0."""
+    cfg = tpt.RenderConfig(width=16, height=16, **PROFILES[profile])
+    rng = np.random.default_rng(5)
+    cols = [rng.uniform(0, 16, n), rng.uniform(0, 16, n), rng.uniform(8.0, 16.0, n),
+            np.ones(n), rng.uniform(0, 1, n), rng.uniform(0, 1, n), rng.uniform(0, 1, n),
+            rng.uniform(-np.pi, np.pi, n), rng.uniform(0.5, 1.0, n), rng.uniform(1, 9, n)]
+    planes = {k: torch.tensor(c, dtype=torch.float32) for k, c in zip(_PLANE_NAMES, cols)}
+    return cfg, bin_planes_diff(planes, cfg)
+
+
+@pytest.mark.parametrize("profile", ["isotropic", "oriented"])
+def test_exact_zero_stop_changes_no_bit(profile):
+    """The kernel stops a pixel at T == 0: a sequential fold that stops
+    there gives colour, alpha, depth and residual rows bit-equal to one that
+    does not."""
+    cfg, binned = _deep_tile(profile)
+    assert binned["counts"].tolist() == [400]
+    go = diff_fold_plain(binned, cfg, 32)
+    stop = diff_fold_plain(binned, cfg, 32, stop_at_zero=True)
+    # T reached exactly 0 at every pixel before the last chunk started
+    assert bool((go[3][int(residual_row0(binned, 32)[0]) + 400 // 32] == 0.0).all())
+    assert bool((go[1] == 1.0).all())
+    for a, b in zip(go, stop):
+        assert torch.equal(a, b)

@@ -444,3 +444,120 @@ def test_diff_kernels_on_uncommon_tile_shapes(cuda, profile, tiles):
             continue
         scale = float(pg.abs().max()) + 1e-12
         assert float((kg - pg).abs().max()) / scale < grad_tol, name
+
+
+# ---- the forward kernel's residual, its exact-zero stop and deep tiles ----
+
+RESIDUAL_TILES = {
+    "16x16": dict(tile_size=16),                  # 32-record chunks
+    "32x16": dict(tile_size=32, tile_height=16),  # 16-record chunks
+    "32x32": dict(tile_size=32),                  # 8-record chunks, 1024-thread blocks
+    "16x6": dict(tile_size=16, tile_height=6),    # row-major warps
+}
+
+
+def _deep_planes(device, cfg, n=3000, n_deep=600, seed=0):
+    """`_random_planes` and a pile of wide opacity-1 records over the square
+    [24, 56]^2: the pixels under it end at T exactly 0, so warps leave."""
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import _PLANE_NAMES
+
+    planes, _ = _random_planes(device, cfg, n, seed)
+    rng = np.random.default_rng(seed + 100)
+    deep = [rng.uniform(24, 56, n_deep), rng.uniform(24, 56, n_deep),
+            rng.uniform(8.0, 14.0, n_deep), np.ones(n_deep), rng.uniform(0, 1, n_deep),
+            rng.uniform(0, 1, n_deep), rng.uniform(0, 1, n_deep),
+            rng.uniform(-np.pi, np.pi, n_deep), rng.uniform(0.5, 1.0, n_deep),
+            rng.uniform(1, 10, n_deep)]
+    return [torch.cat([p.detach(), torch.tensor(d, dtype=torch.float32, device=device)])
+            .requires_grad_(True) for p, d in zip(planes, deep)], _PLANE_NAMES
+
+
+@pytest.mark.parametrize("tiles", sorted(RESIDUAL_TILES))
+@pytest.mark.parametrize("profile", sorted(DIFF_PROFILES))
+def test_forward_residual_matches_its_mirror(cuda, profile, tiles):
+    """K4's chunk-start T against `diff_residuals_plain` within 2e-5 in every
+    row a tile uses; once all 32 pixels of a warp are at 0 (the warp left),
+    every later row of that warp is exactly 0, written, not left over."""
+    from splat_renderer_tpu_torch.ops.tile_blend import warp_pixels
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import (
+        bwd_chunk, diff_fold_plain, diff_forward, residual_row0, residual_rows,
+        residual_rows_used,
+    )
+    from splat_renderer_tpu_torch.render.binning import bin_planes_diff
+
+    prof, _ = DIFF_PROFILES[profile]
+    cfg = tpt.RenderConfig(width=192, height=96, tiles_per_splat_cap=16, **prof,
+                           **RESIDUAL_TILES[tiles])
+    bc = bwd_chunk(cfg)
+    planes, names = _deep_planes(cuda, cfg)
+    binned = bin_planes_diff({k: p.detach() for k, p in zip(names, planes)}, cfg)
+    # the caching allocator hands the freed block to the residual: a row the
+    # kernel does not write stays NaN
+    junk = torch.full((residual_rows(binned, cfg, bc), cfg.tile_pixels), float("nan"),
+                      device=cuda)
+    del junk
+    *outs, t_start = diff_forward(binned, cfg, residuals=True)
+    *p_outs, p_start = diff_fold_plain(binned, cfg, bc)
+    torch.cuda.synchronize()
+    used = residual_rows_used(binned, bc)
+    assert bool(torch.isfinite(t_start[used]).all())
+    assert float((t_start[used] - p_start[used]).abs().max()) <= 2e-5
+    for k, p in zip(outs, p_outs):
+        assert float((k - p).abs().max()) <= 2e-5
+    lanes = warp_pixels(cfg).to(cuda)
+    row0 = residual_row0(binned, bc).tolist()
+    left = 0
+    for t, cnt in enumerate(binned["counts"].tolist()):
+        if cnt == 0:
+            continue
+        block = t_start[row0[t]:row0[t] + (cnt + bc - 1) // bc][:, lanes]  # (chunks, warps, 32)
+        gone = (block == 0.0).all(-1).int()  # (chunks, warps)
+        assert bool((gone[1:] >= gone[:-1]).all()), t  # a warp that left stays gone
+        left += int(gone.amax(0).sum())
+    assert left > 0  # some warps did leave
+
+
+def _deep_tile_planes(device, n=400):
+    """One 16x16 tile under n opacity-1 records wide enough to reach all of
+    it: every pixel's T underflows to exactly 0."""
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import _PLANE_NAMES
+
+    rng = np.random.default_rng(5)
+    cols = [rng.uniform(0, 16, n), rng.uniform(0, 16, n), rng.uniform(8.0, 16.0, n),
+            np.ones(n), rng.uniform(0, 1, n), rng.uniform(0, 1, n), rng.uniform(0, 1, n),
+            rng.uniform(-np.pi, np.pi, n), rng.uniform(0.5, 1.0, n), rng.uniform(1, 9, n)]
+    return [torch.tensor(c, dtype=torch.float32, device=device).requires_grad_(True)
+            for c in cols], _PLANE_NAMES
+
+
+@pytest.mark.parametrize("profile", sorted(DIFF_PROFILES))
+def test_deep_tile_kernels_match_twin(cuda, profile):
+    """Where every pixel stops at T == 0: K4 against the twin within 2e-5,
+    K5's gradients within the gates, two backward runs bit-equal."""
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import (
+        blend_planes, blend_planes_plain, diff_forward,
+    )
+    from splat_renderer_tpu_torch.render.binning import bin_planes_diff
+
+    prof, grad_tol = DIFF_PROFILES[profile]
+    cfg = tpt.RenderConfig(width=16, height=16, **prof)
+    planes, names = _deep_tile_planes(cuda)
+    binned = bin_planes_diff({k: p.detach() for k, p in zip(names, planes)}, cfg)
+    *_, t_start = diff_forward(binned, cfg, residuals=True)
+    assert binned["counts"].tolist() == [400]
+    assert bool((t_start[400 // 32] == 0.0).all())  # every pixel stopped before the last chunk
+    g = torch.Generator(device=cuda).manual_seed(6)
+    shapes = [(1, 256, 3), (1, 256), (1, 256)]
+    cots = [torch.rand(s, generator=g, device=cuda) - 0.5 for s in shapes]
+    k_out, k_grads = _blend_and_grads(blend_planes, cfg, planes, cots)
+    p_out, p_grads = _blend_and_grads(blend_planes_plain, cfg, planes, cots)
+    _, k_grads2 = _blend_and_grads(blend_planes, cfg, planes, cots)
+    torch.cuda.synchronize()
+    for k, p in zip(k_out, p_out):
+        assert float((k - p).abs().max()) <= 2e-5
+    for name, kg, pg, kg2 in zip(names, k_grads, p_grads, k_grads2):
+        assert torch.equal(kg, kg2), name
+        if not cfg.oriented and name in ("angle", "ratio"):
+            continue
+        scale = float(pg.abs().max()) + 1e-12
+        assert float((kg - pg).abs().max()) / scale < grad_tol, name

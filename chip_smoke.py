@@ -52,7 +52,28 @@ static-scene serving and datagen paths, and checks the images.  Phases:
      walks the pair stream 1024 pairs at a time), the depth kernel alone vs
      its twin, and `render_views`, 8 views x 2M splats @1080p as uint8
  12. the arithmetic-rate probe: float32 and bfloat16 multiply-add chains,
-     kernel vs twin, and its entry point's rates
+     kernel vs twin bit for bit, and its entry point's rates
+ 13. the front ends at the JAX scripts' defaults, in process: `apps.datagen
+     --gbuffer` (8 views x 2 steps, 200k points, 800x800; its manifest and
+     files read back by `load_dataset`), `apps.fit_demo --dataset` on it
+     with `--method kernel` (2000 splats, 150 steps; the loss must fall),
+     and `apps.demo`'s SDF engine at 1280x720 and its `--ply` engine on
+     phase 10's file, 3 frames each over HTTP; launch counts of K1, the
+     depth form, K4 and K5; then, on each front end's own configuration,
+     splats and camera, its kernels vs the twin: the depth form on
+     datagen's last view, K4/K5 (forward and gradients, as in phase 6) on
+     the fitted splats' first view, K1 on a frame of each demo engine
+ 14. mesh export of the demo scene at resolutions 96 and 256: vertex and
+     face counts, Euler characteristic 2, watertight, vertices on the
+     surface
+ 15. the turbo profile at the headline shape against the exact profile:
+     SSIM > 0.985, the depth_key_order frame equal to the exact frame bit
+     for bit, K1 vs its twin on the turbo stream, the exact stream's runs
+     equal to those of the same records sorted before binning (K1 and the
+     depth form bit-equal on the two), and the times of the bin stage
+     (exact, turbo, after a record sort), the frame (exact, turbo), K1 and
+     the depth form (on the exact and the record-sorted stream), 5 of
+     each, interleaved
 
 Beside each blend kernel's time at its stream it prints the share of the
 (record, warp) pairs that the kernels' warp-level culling removes there
@@ -80,6 +101,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 EPS_TOL = 2e-5  # kernel vs plain twin / oracle at eps = 0
@@ -87,6 +109,8 @@ EARLY_EXIT_TOL = 0.0101  # eps = 0.01 vs eps = 0 (transmittance floor + rounding
 COVERAGE_FLOOR = 0.05  # share of pixels off the background in a demo frame
 BG_TOL = 1e-3
 DIFF_GRAD_TOL = {"isotropic": 1e-4, "oriented": 1e-3}  # tests/test_diff.py's gates
+# blend_planes' plane arguments, in order
+DIFF_PLANES = ("cx", "cy", "radius", "opacity", "r", "g", "b", "angle", "ratio", "depth")
 FIT8 = ("px", "py", "pz", "radius", "opacity", "cr", "cg", "cb")
 APPEARANCE = ("cr", "cg", "cb", "opacity")
 
@@ -355,36 +379,12 @@ def phase6_diff_kernels(dev, card: str, n: int = 20_000, size: int = 256):
     """K4/K5 vs the twin on random plane streams, and K4's residual vs its
     plain mirror; returns (forward max-abs, gradient max-abs, gradient
     max-relative)."""
-    import torch
-
-    from splat_renderer_tpu_torch.ops.tile_blend_diff import blend_planes, blend_planes_plain
     from splat_renderer_tpu_torch.render.binning import bin_planes_diff
 
-    names = ("cx", "cy", "radius", "opacity", "r", "g", "b", "angle", "ratio", "depth")
     errs = [0.0, 0.0, 0.0]
     for seed, prof, cfg, planes in diff_streams(dev, n, size):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        t, tp = cfg.num_tiles, cfg.tile_pixels
-        cots = [torch.rand(s, generator=g, device=dev) - 0.5
-                for s in ((t, tp, 3), (t, tp), (t, tp))]
-        k_out, k_grads = blend_and_grads(blend_planes, cfg, planes, cots)
-        p_out, p_grads = blend_and_grads(blend_planes_plain, cfg, planes, cots)
-        _, k_grads2 = blend_and_grads(blend_planes, cfg, planes, cots)
-        torch.cuda.synchronize()
-        d_fwd = max(float((a - b).abs().max()) for a, b in zip(k_out, p_out))
-        check(d_fwd <= EPS_TOL, f"{prof}: K4 vs twin {d_fwd}")
-        rel, d_abs = {}, 0.0
-        for name, kg, pg in zip(names, k_grads, p_grads):
-            if not cfg.oriented and name in ("angle", "ratio"):
-                check(float(kg.abs().max()) == 0.0, f"isotropic {name} gradient")
-                continue
-            diff = float((kg - pg).abs().max())
-            d_abs = max(d_abs, diff)
-            rel[name] = diff / (float(pg.abs().max()) + 1e-12)
-            check(rel[name] < DIFF_GRAD_TOL[prof], f"{prof}: K5 {name} max-rel {rel[name]}")
-        same = all(torch.equal(a, b) for a, b in zip(k_grads, k_grads2))
-        check(same, f"{prof}: two backward runs differ")
-        binned = bin_planes_diff({k: p.detach() for k, p in zip(names, planes)}, cfg)
+        d_fwd, d_abs, rel, same = diff_vs_twin(cfg, planes, seed)
+        binned = bin_planes_diff({k: p.detach() for k, p in zip(DIFF_PLANES, planes)}, cfg)
         d_res = residual_error(binned, cfg)
         check(d_res <= EPS_TOL, f"{prof}: K4's residual vs its mirror {d_res}")
         errs = [max(errs[0], d_fwd, d_res), max(errs[1], d_abs), max(errs[2], max(rel.values()))]
@@ -753,14 +753,13 @@ def coverage_u8(frame, background) -> float:
     return float((np.abs(frame.astype(np.float32) - bg).sum(-1) > 255.0 * BG_TOL).mean())
 
 
-def phase10_static_scene(dev, card: str, n: int = 1_000_000):
-    """Static-scene serving at full width: .ply with SH degree 3 -> SplatEngine
-    (tile_xp) -> the HTTP viewer; then frame and stage times, tile vs tile_xp."""
+def phase10_static_scene(dev, card: str, workdir: str, n: int = 1_000_000):
+    """Static-scene serving at full width: .ply with SH degree 3 (kept in
+    `workdir` for phase 13) -> SplatEngine (tile_xp) -> the HTTP viewer;
+    then frame and stage times, tile vs tile_xp."""
     import os
     import statistics
     import tempfile
-    import threading
-    import urllib.request
 
     import numpy as np
     import torch
@@ -774,7 +773,6 @@ def phase10_static_scene(dev, card: str, n: int = 1_000_000):
     from splat_renderer_tpu_torch.render.sh import apply_sh
     from splat_renderer_tpu_torch.utils.image import read_png
     from splat_renderer_tpu_torch.utils.ply import load_ply, save_ply
-    from splat_renderer_tpu_torch.viewer.serve import make_server
 
     width, height = 1920, 1080
     rcfg = RenderConfig(width=width, height=height, base_radius=0.008, tiles_per_splat_cap=4)
@@ -787,12 +785,11 @@ def phase10_static_scene(dev, card: str, n: int = 1_000_000):
 
     # the "pre-trained scene": written as a 3DGS .ply and read back
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "scene.ply")
-        save_ply(path, made, made_sh)
-        size = os.path.getsize(path)
-        t1 = time.perf_counter()
-        splats, sh = load_ply(path, with_sh=True, device=dev)
+    path = os.path.join(workdir, "scene.ply")
+    save_ply(path, made, made_sh)
+    size = os.path.getsize(path)
+    t1 = time.perf_counter()
+    splats, sh = load_ply(path, with_sh=True, device=dev)
     t2 = time.perf_counter()
     check(splats["px"].shape == (n,) and sh["r"].shape == (15, n), "loaded scene's shapes")
     for k in ("px", "py", "pz"):
@@ -814,41 +811,17 @@ def phase10_static_scene(dev, card: str, n: int = 1_000_000):
         return camera_tensors(Camera(aspect=width / height, azimuth=az).arrays(), dev)
 
     # ---- the main path of this slice: the viewer's frames over HTTP ----
-    server = make_server(eng_xp, port=0, profile_stages=False)
-    port = server.server_address[1]
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
     reset_launches()
-    try:
-        def fetch(query):
-            t = time.perf_counter()
-            r = urllib.request.urlopen(f"http://127.0.0.1:{port}/frame?{query}", timeout=120)
-            body = r.read()
-            check(r.status == 200, f"/frame?{query}: status {r.status}")
-            return r, body, (time.perf_counter() - t) * 1e3
-
-        page = urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=30).read()
-        check(b"<canvas" in page, "viewer page")
-        r1, raw1, ms1 = fetch("az=0.5&el=0.5&d=3.0&raw=1")
-        seq = int(r1.headers["x-seq"])
-        r2, raw2, ms2 = fetch(f"az=2.0&el=0.5&d=3.0&raw=1&seq={seq}")
-        seq = int(r2.headers["x-seq"])
-        r3, png, ms3 = fetch(f"az=2.0&el=0.3&d=2.5&seq={seq}")
-        seq = int(r3.headers["x-seq"])
-        r4, half, ms4 = fetch(f"az=2.0&el=0.3&d=2.5&raw=1&half=1&seq={seq}")
-        served = int(r4.headers["x-seq"])
-    finally:
-        server.shutdown()
-        server.render_loop.stop()
-        server.server_close()
-    check(server.render_loop.error is None,
-          f"the viewer's render loop failed: {server.render_loop.error!r}")
+    (h1, raw1, ms1), (h2, raw2, ms2), (h3, png, ms3), (h4, half, ms4) = serve_frames(
+        eng_xp, ("az=0.5&el=0.5&d=3.0&raw=1", "az=2.0&el=0.5&d=3.0&raw=1",
+                 "az=2.0&el=0.3&d=2.5", "az=2.0&el=0.3&d=2.5&raw=1&half=1"), timeout=120)
+    served = int(h4["x-seq"])
     xp_launches = blend_tiles.launches_by_kernel["tile_blend_xp"]
     check(xp_launches >= served >= 4,
           f"tile_blend_xp launched {xp_launches} times for {served} served frames")
     check(len(raw1) == len(raw2) == width * height * 3, f"raw frame bytes {len(raw1)}")
     check(len(half) == (width // 2) * (height // 2) * 3, f"half frame bytes {len(half)}")
-    check((int(r4.headers["x-w"]), int(r4.headers["x-h"])) == (width // 2, height // 2),
+    check((int(h4["x-w"]), int(h4["x-h"])) == (width // 2, height // 2),
           "half frame geometry")
     check(png[:8] == b"\x89PNG\r\n\x1a\n", "PNG signature")
     with tempfile.TemporaryDirectory() as tmp:
@@ -879,8 +852,8 @@ def phase10_static_scene(dev, card: str, n: int = 1_000_000):
     log(f"phase 10: viewer served {served} frames of SplatEngine(sh degree 3, tile_xp) over "
         f"HTTP: raw {len(raw1)} B in {ms1:.1f} / {ms2:.1f} ms, PNG {len(png)} B in {ms3:.1f} ms, "
         f"half raw {len(half)} B in {ms4:.1f} ms (host clock, first request warms up; "
-        f"X-Render-Ms {r1.headers['x-render-ms']} / {r2.headers['x-render-ms']} / "
-        f"{r3.headers['x-render-ms']} / {r4.headers['x-render-ms']}); tile_blend_xp launches "
+        f"X-Render-Ms {h1['x-render-ms']} / {h2['x-render-ms']} / "
+        f"{h3['x-render-ms']} / {h4['x-render-ms']}); tile_blend_xp launches "
         f"{xp_launches}; coverage {min(cov):.3f}..{max(cov):.3f} (> {COVERAGE_FLOOR}); moved "
         f"camera changed the frame by {moved:.2f} levels mean; SH shifts colours by "
         f"{sh_shift:.4f} between azimuths 0.5 and 2.0, lit vs unlit frame {unlit:.4f}; {card}")
@@ -953,7 +926,7 @@ def phase10_static_scene(dev, card: str, n: int = 1_000_000):
         + f"; plain twin (eps 0) {plain_ms:.3f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}); tile_xp "
         f"vs tile bit-equal, vs twin max-abs {err:.3g}; {card}")
     return dict(launches=xp_launches, err=err, ms=statistics.mean(t["tile_xp eps 0"]),
-                plain_ms=plain_ms, bound=bnd)
+                plain_ms=plain_ms, bound=bnd, ply=path)
 
 
 def phase11_datagen(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_000,
@@ -1099,17 +1072,16 @@ def phase12_rate_probe(dev, card: str):
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.rand(pr.PANEL, generator=g, device=dev)
     errs = {}
-    for dtype, tol in (("f32", 0.0), ("bf16", 2.0 ** -6)):
-        # float32: mul by 0.5 is exact, so mul-then-add rounds once like the
-        # fused chain and the results are equal; bfloat16: held to one ulp
-        # at the chain's fixed point 2.0
+    for dtype in ("f32", "bf16"):
+        # mul by 0.5 is exact, so mul-then-add rounds once like the fused
+        # chain: the results are equal bit for bit in both types
         errs[dtype] = 0.0
         for repeats in (1, 5, pr.REPEATS):
             got = pr.probe_rate(x, dtype, repeats=repeats, steps=4)
             want = pr.probe_rate_plain(x, dtype, repeats=repeats, steps=1)
             torch.cuda.synchronize()
             e = float((got - want).abs().max())
-            check(e <= tol, f"probe {dtype} repeats {repeats}: kernel vs twin {e} (> {tol})")
+            check(torch.equal(got, want), f"probe {dtype} repeats {repeats}: kernel vs twin {e}")
             check(bool(torch.isfinite(got).all()), f"probe {dtype}: non-finite")
             errs[dtype] = max(errs[dtype], e)
     # the probe's own entry point: these launches are the ones reported
@@ -1145,12 +1117,356 @@ def phase12_rate_probe(dev, card: str):
             f"{pr.PANEL[0]}x{pr.PANEL[1]} = {fmas} multiply-adds in {rates[dtype]['ms']:.4f} ms "
             f"({rates[dtype]['tfma_s']:.3f} Tfma/s; bound {bnd[0]:.4f} ms, {bnd[1]}, peak "
             f"{peak / 2e12:.1f} Tfma/s); plain twin {plain_ms:.1f} ms; torch.addcmul loop "
-            f"{lib_ms:.1f} ms; kernel vs twin max-abs {errs[dtype]:.3g} (<= "
-            f"{0.0 if dtype == 'f32' else 2.0 ** -6}); {card}")
+            f"{lib_ms:.1f} ms; kernel vs twin max-abs {errs[dtype]:.3g} (bit-equal); {card}")
     log(f"phase 12: bf16 / f32 rate {rates['bf16']['tfma_s'] / rates['f32']['tfma_s']:.3f}; "
         f"launches by the entry point {launches}; {card}")
     out["launches"] = launches
     return out
+
+
+def serve_frames(engine, queries, animate=None, timeout: float = 300):
+    """Serve `engine` over HTTP on an ephemeral localhost port: check the
+    viewer's page, then fetch `/frame?<query>` for each query, each chained
+    on the previous frame's seq.  Returns [(headers, body, request ms on
+    the host clock)]; the server and its render loop are stopped."""
+    import threading
+    import urllib.request
+
+    from splat_renderer_tpu_torch.viewer import make_server
+
+    server = make_server(engine, port=0, animate=animate, profile_stages=False)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    out, seq = [], 0
+    try:
+        check(b"<canvas" in urllib.request.urlopen(f"{url}/", timeout=30).read(), "viewer page")
+        for q in queries:
+            t = time.perf_counter()
+            r = urllib.request.urlopen(f"{url}/frame?{q}&seq={seq}", timeout=timeout)
+            body = r.read()
+            ms = (time.perf_counter() - t) * 1e3
+            check(r.status == 200, f"/frame?{q}: status {r.status}")
+            seq = int(r.headers["x-seq"])
+            out.append((r.headers, body, ms))
+    finally:
+        server.shutdown()
+        server.render_loop.stop()
+        server.server_close()
+        thread.join(timeout=30)
+    check(server.render_loop.error is None,
+          f"the viewer's render loop failed: {server.render_loop.error!r}")
+    return out
+
+
+def diff_vs_twin(cfg, planes, seed: int):
+    """K4/K5 (`blend_planes`) against the twin and its autograd backward on
+    one plane stream (cx, cy, radius, opacity, r, g, b, angle, ratio,
+    depth; leaf tensors that require grad), under random cotangents made
+    from `seed`: (forward max-abs, gradient max-abs, {field: gradient
+    max-relative}, two backward runs bit-equal).  Checks every gate."""
+    import torch
+
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import blend_planes, blend_planes_plain
+
+    prof = "oriented" if cfg.oriented else "isotropic"
+    dev = planes[0].device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t, tp = cfg.num_tiles, cfg.tile_pixels
+    cots = [torch.rand(s, generator=g, device=dev) - 0.5 for s in ((t, tp, 3), (t, tp), (t, tp))]
+    k_out, k_grads = blend_and_grads(blend_planes, cfg, planes, cots)
+    p_out, p_grads = blend_and_grads(blend_planes_plain, cfg, planes, cots)
+    _, k_grads2 = blend_and_grads(blend_planes, cfg, planes, cots)
+    torch.cuda.synchronize()
+    d_fwd = max(float((a - b).abs().max()) for a, b in zip(k_out, p_out))
+    check(d_fwd <= EPS_TOL, f"{prof}: K4 vs twin {d_fwd}")
+    rel, d_abs = {}, 0.0
+    for name, kg, pg in zip(DIFF_PLANES, k_grads, p_grads):
+        if not cfg.oriented and name in ("angle", "ratio"):
+            check(float(kg.abs().max()) == 0.0, f"isotropic {name} gradient")
+            continue
+        diff = float((kg - pg).abs().max())
+        d_abs = max(d_abs, diff)
+        rel[name] = diff / (float(pg.abs().max()) + 1e-12)
+        check(rel[name] < DIFF_GRAD_TOL[prof], f"{prof}: K5 {name} max-rel {rel[name]}")
+    same = all(torch.equal(a, b) for a, b in zip(k_grads, k_grads2))
+    check(same, f"{prof}: two backward runs differ")
+    return d_fwd, d_abs, rel, same
+
+
+def phase13_front_ends(dev, card: str, workdir: str, ply_path: str, views: int = 8,
+                       steps: int = 2, size: int = 800, points: int = 200_000):
+    """The three front ends at the JAX scripts' defaults, in process:
+    datagen --gbuffer (8 views x 2 steps, 200k points, 800x800), fit_demo on
+    that dataset with the kernels, and demo's engines served over HTTP.
+    After each front end's launches are counted, one of its streams goes
+    through its kernels and their twin.  Returns the launch counts and the
+    worst kernel-vs-twin errors."""
+    import gc
+    import json
+    import os
+
+    import numpy as np
+    import torch
+
+    from splat_renderer_tpu_torch import Camera, load_dataset
+    from splat_renderer_tpu_torch.apps import datagen, demo, fit_demo
+    from splat_renderer_tpu_torch.camera import camera_tensors
+    from splat_renderer_tpu_torch.ops.tile_blend import (
+        blend_tiles, blend_tiles_plain, reset_launches,
+    )
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import diff_backward, diff_forward
+    from splat_renderer_tpu_torch.render.pipeline import demo_scene
+
+    # a user starts each front end in a fresh process: release what the
+    # earlier phases left in this one's heap and caching allocator
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(workdir, "dataset")
+    dg_argv = ["--out", out, "--views", str(views), "--steps", str(steps), "--points", str(points),
+               "--width", str(size), "--height", str(size), "--gbuffer", "--device", "cuda"]
+    reset_launches()
+    t0 = time.perf_counter()
+    manifest = datagen.main(dg_argv)
+    torch.cuda.synchronize()
+    t_datagen = time.perf_counter() - t0
+    depth_launches = blend_tiles.launches_by_kernel["tile_blend_depth"]
+    check(depth_launches == blend_tiles.launches == views * steps,
+          f"datagen launched {dict(blend_tiles.launches_by_kernel)} for {views * steps} views")
+    with open(os.path.join(out, "manifest.json")) as f:
+        check(json.load(f) == manifest, "manifest.json differs from what datagen returned")
+    check(len(manifest["frames"]) == views * steps, "manifest frames")
+    for fr in manifest["frames"]:
+        for k in ("file", "depth_file", "alpha_file"):
+            check(os.path.exists(os.path.join(out, fr[k])), f"missing {fr[k]}")
+        check(fr["depth_max"] >= fr["depth_min"] > 0.0, f"depth range of {fr['file']}")
+    t0 = time.perf_counter()
+    ds = load_dataset(out, gbuffer=True, device=dev)
+    t_load = time.perf_counter() - t0
+    check(len(ds["images"]) == views * steps and ds["images"][0].shape == (size, size, 3),
+          "dataset images")
+    cover = min(float((a > 0.5).float().mean()) for a in ds["alpha"])
+    check(cover > COVERAGE_FLOOR, f"dataset alpha coverage {cover}")
+    # the last view, binned with datagen's own configuration, splats and
+    # camera: the depth form against its twin
+    dargs = datagen.parse_args(dg_argv)
+    dcfg = datagen.render_config(dargs)
+    b_dg = words_and_bins(datagen.step_splats(demo_scene(), steps - 1, dargs, dcfg, dev),
+                          ds["cameras"][-1], dcfg, with_depth=True)
+    k = blend_tiles(b_dg, dcfg, eps=0.0, with_depth=True)
+    p = blend_tiles_plain(b_dg, dcfg, eps=0.0, with_depth=True, pair_chunk=8192)
+    torch.cuda.synchronize()
+    d_rgba = max_diff(k[:2], p[:2])
+    d_depth = float((k[2] - p[2]).abs().max()) / depth_range(b_dg)
+    check(d_rgba <= EPS_TOL, f"datagen view: depth form vs twin, colour and alpha {d_rgba}")
+    check(d_depth <= DEPTH_TOL, f"datagen view: depth form vs twin, depth {d_depth}")
+    log(f"phase 13: datagen --gbuffer {views} views x {steps} steps, {points} points, "
+        f"{size}x{size}: {t_datagen:.2f} s (host clock, PNG writes included), "
+        f"{t_datagen / (views * steps) * 1e3:.1f} ms a view; depth-form launches "
+        f"{depth_launches}; read back by load_dataset in {t_load:.2f} s, least alpha "
+        f"coverage {cover:.3f}; its last view's stream ({int(b_dg['offsets'][-1])} pairs): "
+        f"depth form vs twin at eps 0, colour and alpha max-abs {d_rgba:.3g} (<= {EPS_TOL}), "
+        f"depth {d_depth:.3g} of the largest depth (<= {DEPTH_TOL}); {card}")
+
+    reset_launches()
+    diff_forward.launches = diff_backward.launches = 0
+    t0 = time.perf_counter()
+    fitted, losses = fit_demo.main(["--dataset", out, "--method", "kernel", "--device", "cuda"])
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    k4, k5 = diff_forward.launches, diff_backward.launches
+    n_steps, n_views = int(losses.shape[0]), views * steps
+    check(k4 == k5 == n_steps * n_views, f"fit_demo launched K4 {k4}, K5 {k5} times for "
+          f"{n_steps} steps of {n_views} views")
+    check(blend_tiles.launches == 0, "fit_demo launched the exact blend")
+    check(bool(torch.isfinite(losses).all()), "fit_demo: non-finite loss")
+    check(float(losses[-1]) < float(losses[0]), f"fit_demo: loss {float(losses[0]):.4g} -> "
+          f"{float(losses[-1]):.4g} did not fall")
+    psnr = float(-10.0 * torch.log10(losses[-1]))
+    check(psnr == psnr and abs(psnr) != float("inf"), f"fit_demo PSNR {psnr}")
+    # the fitted splats' first view, with fit_demo's configuration: K4 and
+    # K5 against the twin and its autograd backward
+    fcfg = fit_demo.dataset_config(ds)
+    with torch.no_grad():
+        fp = training_planes({k: v.detach() for k, v in fitted.items()}, ds["cameras"][0], fcfg)
+    f_planes = [fp[k].detach().clone().requires_grad_(True) for k in DIFF_PLANES]
+    d_k4, d_k5, rel, same = diff_vs_twin(fcfg, f_planes, 13)
+    log(f"phase 13: fit_demo --dataset --method kernel (n {fitted['px'].shape[0]}, "
+        f"{n_steps} steps x {n_views} views): {t_fit:.2f} s host clock, "
+        f"{t_fit / n_steps * 1e3:.1f} ms a step; loss {float(losses[0]):.4g} -> "
+        f"{float(losses[-1]):.4g}, PSNR {psnr:.2f} dB; K4 launches {k4}, K5 {k5}; the fitted "
+        f"splats' first view: K4 vs twin max-abs {d_k4:.3g} (<= {EPS_TOL}), K5 gradient "
+        f"max-rel {max(rel.values()):.3g} (< {DIFF_GRAD_TOL['isotropic']}, worst "
+        f"{max(rel, key=rel.get)}), backward bit-identical on rerun: {same}; {card}")
+
+    served, d_k1 = {}, 0.0
+    for label, argv in (("sdf", ["--device", "cuda"]),
+                        ("ply", ["--ply", ply_path, "--device", "cuda"])):
+        args = demo.parse_args(argv)
+        t0 = time.perf_counter()
+        eng, animate = demo.build(args, dev)
+        t_build = time.perf_counter() - t0
+        reset_launches()
+        got = serve_frames(eng, ("az=0.5&el=0.5&d=3.0&t=0.0&raw=1",
+                                 "az=1.2&el=0.4&d=3.0&t=0.5&raw=1",
+                                 "az=2.0&el=0.3&d=2.5&t=1.0&raw=1"), animate=animate)
+        k1 = blend_tiles.launches_by_kernel["tile_blend"]
+        check(k1 == blend_tiles.launches >= 3, f"demo {label}: K1 launched {k1} times for "
+              f"3 frames ({dict(blend_tiles.launches_by_kernel)})")
+        for headers, body, _ in got:
+            f = np.frombuffer(body, np.uint8).reshape(int(headers["x-h"]), int(headers["x-w"]), 3)
+            check(f.shape == (args.height, args.width, 3), f"demo {label}: frame {f.shape}")
+            check(coverage_u8(f, eng.rcfg.background) > COVERAGE_FLOOR,
+                  f"demo {label}: coverage")
+        served[label] = k1
+        # the engine's own splats for a frame: K1 against its twin
+        cam = camera_tensors(Camera(aspect=args.width / args.height).arrays(), dev)
+        b = words_and_bins(eng._frame_splats(cam, torch.Generator(device=dev).manual_seed(0)),
+                           cam, eng.rcfg)
+        d = max_diff(blend_tiles(b, eng.rcfg, eps=0.0),
+                     blend_tiles_plain(b, eng.rcfg, eps=0.0, pair_chunk=8192))
+        check(d <= EPS_TOL, f"demo {label}: K1 vs twin {d}")
+        d_k1 = max(d_k1, d)
+        log(f"phase 13: demo {label} at {args.width}x{args.height} (n {eng.n}; built in "
+            f"{t_build:.2f} s): 3 frames over HTTP, request ms "
+            + " ".join(f"{ms:.1f}" for *_, ms in got) + ", X-Render-Ms "
+            + " ".join(h["x-render-ms"] for h, *_ in got) + f"; K1 launches {k1}; a frame's "
+            f"stream ({int(b['offsets'][-1])} pairs): K1 vs twin max-abs {d:.3g} (<= "
+            f"{EPS_TOL}); {card}")
+    return dict(depth=depth_launches, k4=k4, k5=k5, k1=served,
+                err=dict(k1=d_k1, depth=max(d_rgba, d_depth), k4=d_k4, k5=d_k5))
+
+
+def phase14_mesh(dev, card: str):
+    """Mesh export of the demo scene at resolutions 96 and 256."""
+    import numpy as np
+    import torch
+
+    from splat_renderer_tpu_torch.render.pipeline import demo_scene
+    from splat_renderer_tpu_torch.sdf import extract_mesh
+
+    scene = demo_scene()
+    params = scene.params(dev)
+    for res in (96, 256):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = extract_mesh(scene, params, resolution=res)
+        t = time.perf_counter() - t0
+        v, f = m["vertices"], m["faces"]
+        e = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]), axis=1)
+        _, uses = np.unique(e[:, 0].astype(np.int64) * len(v) + e[:, 1], return_counts=True)
+        chi = len(v) - len(uses) + len(f)
+        watertight = bool((uses == 2).all())
+        d = scene.sdf(torch.from_numpy(v).to(dev), params)[0].abs().max().item()
+        check(len(f) > 0 and watertight and chi == 2,
+              f"mesh at {res}: chi {chi}, watertight {watertight}")
+        check(d < 1e-3, f"mesh at {res}: vertices {d} off the surface")
+        log(f"phase 14: extract_mesh demo scene at {res}: {len(v)} vertices, {len(f)} faces, "
+            f"Euler characteristic {chi}, watertight {watertight}, max |sdf| at the vertices "
+            f"{d:.2e}; {t:.2f} s host clock; {card}")
+
+
+def phase15_turbo(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_000):
+    """The turbo profile at the headline shape against the exact one: image
+    quality, depth_key_order's bit-equality, K1 vs its twin on the turbo
+    stream, and the bin stage's and the frame's times, interleaved.  The
+    binner never sorts the records; a third bin time sorts them into
+    canonical order first (`canonical_order` and a gather of the four word
+    planes), which is the cost the binner's design leaves out."""
+    import statistics
+
+    import torch
+
+    from splat_renderer_tpu_torch import PointConfig, turbo_render_config
+    from splat_renderer_tpu_torch.ops.tile_blend import blend_tiles, blend_tiles_plain
+    from splat_renderer_tpu_torch.render.binning import bin_packed_words, canonical_order
+    from splat_renderer_tpu_torch.render.pipeline import demo_scene, model_points, render_splats
+    from splat_renderer_tpu_torch.render.projector import splat_screen_words
+    from splat_renderer_tpu_torch.utils.ssim import ssim_np
+
+    exact, cam = headline_cfg, headline_cam
+    geometry = {k: getattr(exact, k) for k in
+                ("base_radius", "tiles_per_splat_cap", "tile_size", "tile_height")}
+    turbo = turbo_render_config(exact.width, exact.height, **geometry)
+    dko = exact.replace(depth_key_order=True)
+    scene = demo_scene()
+    splats = model_points(scene, scene.params(dev), torch.Generator(device=dev).manual_seed(31),
+                          n, PointConfig(), exact, device=dev)
+    frames = {name: render_splats(splats, cam, cfg, device=dev)
+              for name, cfg in (("exact", exact), ("turbo", turbo), ("dko", dko))}
+    torch.cuda.synchronize()
+    check(torch.equal(frames["dko"], frames["exact"]),
+          "depth_key_order frame differs from the exact frame")
+    quality = ssim_np(frames["turbo"].cpu().numpy(), frames["exact"].cpu().numpy())
+    check(quality > 0.985, f"turbo vs exact SSIM {quality}")
+    keys = ("dk", "w_pos", "w_ro", "w_rgb")
+    words = {name: [w[k] for k in keys] for name, w in (
+        (name, splat_screen_words(splats, cam["view_proj"], cam["cam_pos"], cfg))
+        for name, cfg in (("exact", exact), ("turbo", turbo)))}
+    cfgs = {"exact": exact, "turbo": turbo}
+
+    def bins(name, with_depth=False):
+        return bin_packed_words(*words[name], cfgs[name], with_depth=with_depth)
+
+    def bins_sorted(with_depth=False):
+        order = canonical_order(words["exact"][0])
+        return order, bin_packed_words(*(w[order] for w in words["exact"]), exact,
+                                       with_depth=with_depth)
+
+    b_turbo = bins("turbo")
+    k = blend_tiles(b_turbo, turbo, eps=0.0)
+    p = blend_tiles_plain(b_turbo, turbo, eps=0.0, pair_chunk=8192)
+    torch.cuda.synchronize()
+    err = max_diff(k, p)
+    check(err <= EPS_TOL, f"K1 vs twin on the turbo stream: {err}")
+    # the record-sorted stream holds the same records in the same order per
+    # tile, so K1 and its depth form give the same bits on it; its words lie
+    # in depth order, a tile's records near each other in memory
+    streams = {"exact": bins("exact", True), "after a record sort": bins_sorted(True)[1]}
+    b_exact, (order, b_sorted) = bins("exact"), bins_sorted()
+    live = int(b_exact["offsets"][-1])
+    check(torch.equal(b_exact["offsets"], b_sorted["offsets"])
+          and torch.equal(b_exact["pair_rank"][:live].long(),
+                          order[b_sorted["pair_rank"][:live].long()]),
+          "the binner's runs differ from the record-sorted stream's")
+    for with_depth in (False, True):
+        a, b = (blend_tiles(v, exact, with_depth=with_depth) for v in streams.values())
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"with_depth={with_depth}: the record-sorted stream blends to other bits")
+
+    def timed(fn):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1)
+
+    t = {key: [] for key in ("bin exact", "bin turbo", "bin after a record sort",
+                             "frame exact", "frame turbo", "K1 exact", "K1 after a record sort",
+                             "depth form exact", "depth form after a record sort")}
+    for i in range(5):
+        for name in (("exact", "turbo") if i % 2 == 0 else ("turbo", "exact")):
+            t[f"bin {name}"].append(timed(lambda: bins(name)))
+            t[f"frame {name}"].append(
+                timed(lambda: render_splats(splats, cam, cfgs[name], device=dev)))
+        t["bin after a record sort"].append(timed(bins_sorted))
+        for name in (("exact", "after a record sort") if i % 2 == 0
+                     else ("after a record sort", "exact")):
+            t[f"K1 {name}"].append(timed(lambda: blend_tiles(streams[name], exact)))
+            t[f"depth form {name}"].append(
+                timed(lambda: blend_tiles(streams[name], exact, with_depth=True)))
+    med = {key: statistics.median(v) for key, v in t.items()}
+    log(f"phase 15: turbo profile at {exact.width}x{exact.height} {exact.tile_w}x{exact.tile_h} "
+        f"cap {exact.tiles_per_splat_cap}, {n} splats: SSIM vs exact {quality:.5f} (> 0.985); "
+        f"depth_key_order alone equal to the exact frame bit for bit; K1 vs twin on the turbo "
+        f"stream ({int(b_turbo['offsets'][-1])} pairs) max-abs {err:.3g} (<= {EPS_TOL}); the "
+        "exact stream's runs equal to those of the record-sorted stream, and K1's and the "
+        f"depth form's outputs on the two bit-equal; CUDA-event ms at eps "
+        f"{exact.transmittance_eps}, 5 of each interleaved: "
+        + "; ".join(f"{key} " + " ".join(f"{x:.3f}" for x in v) + f" (median {med[key]:.3f})"
+                    for key, v in t.items()) + f"; {card}")
+    return med
 
 
 def main() -> None:
@@ -1176,6 +1492,7 @@ def main() -> None:
     from splat_renderer_tpu_torch.render.packing import U32_MASK, unpack_words
     from splat_renderer_tpu_torch.render.projector import splat_screen_words
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
 
@@ -1413,14 +1730,29 @@ def main() -> None:
     # ---- phase 8: the quality fit ----
     phase8_quality_fit(dev, card)
 
-    # ---- phase 10: static-scene serving ----
-    p10 = phase10_static_scene(dev, card)
+    with tempfile.TemporaryDirectory() as workdir:
+        # ---- phase 10: static-scene serving ----
+        p10 = phase10_static_scene(dev, card, workdir)
 
-    # ---- phase 11: datagen ----
-    p11 = phase11_datagen(dev, card, rcfg, cam)
+        # ---- phase 11: datagen ----
+        p11 = phase11_datagen(dev, card, rcfg, cam)
 
-    # ---- phase 12: the rate probe ----
-    p12 = phase12_rate_probe(dev, card)
+        # ---- phase 12: the rate probe ----
+        p12 = phase12_rate_probe(dev, card)
+
+        # ---- phase 13: the front ends, on phase 10's .ply too ----
+        t13 = time.perf_counter()
+        p13 = phase13_front_ends(dev, card, workdir, p10["ply"])
+        t14 = time.perf_counter()
+
+    # ---- phase 14: mesh export ----
+    phase14_mesh(dev, card)
+    t15 = time.perf_counter()
+
+    # ---- phase 15: the turbo profile at the headline shape ----
+    phase15_turbo(dev, card, rcfg, cam)
+    log(f"phases 13-15: {t14 - t13:.1f} / {t15 - t14:.1f} / {time.perf_counter() - t15:.1f} s "
+        f"(host clock); the script so far {time.perf_counter() - t_start:.1f} s; {card}")
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "splat_renderer_tpu"
@@ -1441,17 +1773,20 @@ def main() -> None:
     print(json.dumps({"kernels": [
         # one kernel is the port of both TPU schedules that compute its image
         entry("tile_blend", blend_src, f"{jax_blend}:337, {jax_blend}:570", main_launches,
-              max_err, exact_ms, plain_exact_ms, k1_bound),
+              max(max_err, p13["err"]["k1"]), exact_ms, plain_exact_ms, k1_bound),
         # the same two TPU kernels' with_depth form (body at :96-113, :271-278)
         entry("tile_blend_depth", blend_src, f"{jax_blend}:337, {jax_blend}:570",
-              p11["launches"], max(depth_err, p11["err"]), p11["ms"], p11["plain_ms"],
+              p11["launches"], max(depth_err, p11["err"], p13["err"]["depth"]), p11["ms"],
+              p11["plain_ms"],
               p11["bound"]),
         entry("tile_blend_xp", blend_src, f"{jax_blend}:422", p10["launches"],
               max(xp_err, p10["err"]), p10["ms"], p10["plain_ms"], p10["bound"]),
         entry("tile_blend_diff_fwd", diff_src, "splat_renderer_tpu/ops/tile_blend_diff.py:136",
-              p7["launches"][0], max(k4_err, k4_main_err), k4_ms, k4_plain, k4_bound),
+              p7["launches"][0], max(k4_err, k4_main_err, p13["err"]["k4"]), k4_ms, k4_plain,
+              k4_bound),
         entry("tile_blend_diff_bwd", diff_src, "splat_renderer_tpu/ops/tile_blend_diff.py:199",
-              p7["launches"][1], max(k5_err, k5_main_err), k5_ms, k5_plain, k5_bound),
+              p7["launches"][1], max(k5_err, k5_main_err, p13["err"]["k5"]), k5_ms, k5_plain,
+              k5_bound),
         # the float32 chain in the common keys, the bfloat16 chain beside it
         entry("probe_rate", "splat_renderer_tpu_torch/csrc/probe_rate.cu",
               "benchmarks/probe_bf16.py:24", p12["launches"], f32["err"], f32["ms"],
@@ -1498,8 +1833,8 @@ def k4_parity(mode: str, path: str) -> None:
 
     cpu = lambda v: [x.cpu() for x in v] if isinstance(v, list) else v.cpu()  # noqa: E731
     if mode == "save":
-        names = ("cx", "cy", "radius", "opacity", "r", "g", "b", "angle", "ratio", "depth")
-        streams = [(cfg, bin_planes_diff({k: p.detach() for k, p in zip(names, planes)}, cfg))
+        streams = [(cfg, bin_planes_diff({k: p.detach() for k, p in zip(DIFF_PLANES, planes)},
+                                         cfg))
                    for _, _, cfg, planes in diff_streams(dev)]
         cfg, spl, cam = training_scene(dev)
         with torch.no_grad():

@@ -5,7 +5,8 @@ The port of `splat_renderer_tpu` (JAX/Pallas), which stays in the repository
 as its reference; module names match the JAX package's so each counterpart
 is easy to find.  This package imports torch and never jax.
 
-- `sdf`:    CSG scene graph of SDF primitives with analytic gradients.
+- `sdf`:    CSG scene graph of SDF primitives with analytic gradients, and
+            mesh export (`extract_mesh`, `save_obj`).
 - `points`: surface-point seeding, projection onto the surface, curvature
             probe, splat property derivation.
 - `render`: projection to packed record words, canonical-order tile
@@ -23,14 +24,19 @@ is easy to find.  This package imports torch and never jax.
 - `data`:   datasets on disk -> cameras and targets for fitting.
 - `viewer`: the HTTP viewer and the offline turntable.
 - `utils`:  SSIM and the training losses; splat and checkpoint files; 3DGS
-            `.ply` files; PNG files.
+            `.ply` files; PNG files; timing, logging and profiling.
+- `apps`:   the command-line front ends (`python -m
+            splat_renderer_tpu_torch.apps.demo|fit_demo|datagen`).
 - `convert`: state carried across from the JAX package as numpy.
 """
 
 from . import sdf
-from .camera import Camera, OrbitCameraController, camera_tensors, orbit_ring
+from .camera import (Camera, OrbitCameraController, camera_tensors,
+                     orbit_camera_arrays, orbit_ring)
 from .config import (PointConfig, RenderConfig, surface_render_config,
                      turbo_render_config)
+from .data import (backproject_gbuffer, load_dataset, load_transforms,
+                   stack_views)
 from .render.multiview import render_views, render_views_gbuffer
 from .render.pipeline import (
     Engine,
@@ -73,9 +79,13 @@ __all__ = [
     "Sphere",
     "SplatEngine",
     "Torus",
+    "backproject_gbuffer",
     "camera_tensors",
     "intersection",
+    "load_dataset",
+    "load_transforms",
     "model_points",
+    "orbit_camera_arrays",
     "orbit_ring",
     "render_frame",
     "render_gbuffer",
@@ -87,6 +97,7 @@ __all__ = [
     "smooth_intersection",
     "smooth_subtraction",
     "smooth_union",
+    "stack_views",
     "subtraction",
     "surface_render_config",
     "turbo_render_config",

@@ -144,8 +144,8 @@ struct BlendParams {
 // The binner's tables and the kernels' outputs (device pointers).
 struct Stream {
   const int* offsets;    // (T+1) tile t's run is pairs [offsets[t], offsets[t+1])
-  const int* pair_rank;  // (P) rank of each pair's record
-  const int* rec_pos;    // (N) word planes in canonical (rank) order
+  const int* pair_rank;  // (P) index of each pair's record
+  const int* rec_pos;    // (N) word planes, indexed by pair_rank
   const int* rec_ro;
   const int* rec_rgb;
   const int* rec_depth;  // (N) depth bit patterns; read only WITH_DEPTH
@@ -625,7 +625,7 @@ int block_threads(int tile_w, int tile_h) { return (tile_w * tile_h + 31) / 32 *
 
 // Composite every tile.  Pointers are device pointers: offsets (T+1) int32,
 // pair_rank (P) int32, rec_pos/rec_ro/rec_rgb (N) int32 bit patterns of the
-// u32 words in canonical (rank) order; outputs tile_color (T, tp, 3) and
+// u32 words, indexed by pair_rank; outputs tile_color (T, tp, 3) and
 // tile_alpha (T, tp) float32 with tp = tile_w * tile_h <= 1024.  With
 // rec_depth (N, int32 bit patterns of the records' float depths) and
 // tile_depth (T, tp) both non-null, the premultiplied depth sum is written

@@ -13,18 +13,24 @@ The question it answers: is bfloat16 elementwise math outside the tensor
 cores twice the float32 rate on this card?  That decides whether a bfloat16
 profile of the blend kernels' alpha arithmetic could pay.
 
-    python -m splat_renderer_tpu_torch.ops.probe_rate
+    python -m splat_renderer_tpu_torch.ops.probe_rate [--sweep]
 
 prints, for each type, the kernel's time and rate in T multiply-adds per
-second, beside the card's name and power limit.  It needs a CUDA device.
+second, beside the card's name and power limit.  With `--sweep` it also
+times the same chains laid out C a thread, S steps a block and T threads a
+block, in float32, bfloat16 and float16 (`sweep`, the kernel source's
+`probe_rate_sweep` entry), in turns with the probe, and checks every
+layout's output against the plain chain bit for bit.  It needs a CUDA
+device.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
-from typing import Dict
+from typing import Dict, List, Optional
 
 import torch
 
@@ -32,15 +38,23 @@ PANEL = (128, 256)  # the probe's panel, float32 in and out
 REPEATS = 256  # chain length per step
 STEPS = 512  # times the whole chain is recomputed
 DTYPES = ("f32", "bf16")
+# the sweep's layouts
+SWEEP_DTYPES = {"f32": 0, "bf16": 1, "f16": 2}
+SWEEP_CHAINS = (1, 2, 4, 8)
+SWEEP_STEPS_PER_BLOCK = (1, 8, 64)
+SWEEP_THREADS = (128, 256)
 
 
-def _kernel_fn():
+def _kernel_fn(name: str = "probe_rate_forward"):
     from .build import load_library
 
-    lib = load_library("probe_rate")
-    fn = lib.probe_rate_forward
+    fn = getattr(load_library("probe_rate"), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        if name == "probe_rate_forward":
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        else:
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                           + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -105,35 +119,103 @@ def fma_count(n_elements: int, repeats: int = REPEATS, steps: int = STEPS) -> in
     return repeats * steps * n_elements
 
 
+def _elapsed_ms(fn, reps: int) -> float:
+    """Mean CUDA-event ms of `reps` calls of fn after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
 def measure(device, reps: int = 10, seed: int = 0) -> Dict[str, Dict[str, float]]:
     """Time the kernel per type on `device` (CUDA events, mean of `reps`
     launches after one warm-up): {"f32"|"bf16": {"ms", "tfma_s"}}."""
     g = torch.Generator(device=device).manual_seed(seed)
     x = torch.rand(PANEL, generator=g, device=device)
     out = {}
-    for dtype in DTYPES:
-        probe_rate(x, dtype)
-        torch.cuda.synchronize(device)
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            probe_rate(x, dtype)
-        e1.record()
-        torch.cuda.synchronize(device)
-        ms = e0.elapsed_time(e1) / reps
-        out[dtype] = {"ms": ms, "tfma_s": fma_count(x.numel()) / (ms * 1e-3) / 1e12}
+    with torch.cuda.device(device):
+        for dtype in DTYPES:
+            ms = _elapsed_ms(lambda: probe_rate(x, dtype), reps)
+            out[dtype] = {"ms": ms, "tfma_s": fma_count(x.numel()) / (ms * 1e-3) / 1e12}
     return out
 
 
-def main() -> None:
+def plain_f16(x: torch.Tensor, repeats: int = REPEATS) -> torch.Tensor:
+    """probe_rate_plain's chain in float16 (exact mul by 0.5, then add)."""
+    acc = x.to(torch.float16)
+    for _ in range(repeats):
+        acc = torch.add(torch.mul(acc, 0.5), 1.0)
+    return acc.to(torch.float32)
+
+
+def sweep(device, rounds: int = 3, reps: int = 20, seed: int = 0):
+    """Time every layout of the sweep and the probe itself, in turns, at the
+    probe's shape: ({name: [ms per round]}, [layouts whose output is not
+    bit-equal to the plain chain]).  A layout is (dtype, chains, steps a
+    block, threads)."""
+    fn = _kernel_fn("probe_rate_sweep")
+    x = torch.rand(PANEL, generator=torch.Generator(device=device).manual_seed(seed),
+                   device=device)
+    want = {"f32": probe_rate_plain(x, "f32", steps=1),
+            "bf16": probe_rate_plain(x, "bf16", steps=1), "f16": plain_f16(x)}
+    layouts = [(d, c, s, t) for d in SWEEP_DTYPES for c in SWEEP_CHAINS
+               for s in SWEEP_STEPS_PER_BLOCK for t in SWEEP_THREADS]
+    outs = {lay: torch.empty_like(x) for lay in layouts}
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+
+        def run(lay):
+            d, c, s, t = lay
+            err = fn(SWEEP_DTYPES[d], x.data_ptr(), outs[lay].data_ptr(), x.numel(), REPEATS,
+                     STEPS, c, s, t, stream)
+            if err:
+                raise RuntimeError(f"probe_rate_sweep {lay}: CUDA error {err}")
+
+        bad = []
+        for lay in layouts:
+            run(lay)
+            torch.cuda.synchronize()
+            if not torch.equal(outs[lay], want[lay[0]]):
+                bad.append(lay)
+        times = {k: [] for k in [f"probe_rate {d}" for d in DTYPES] + layouts}
+        for _ in range(rounds):
+            for d in DTYPES:
+                times[f"probe_rate {d}"].append(_elapsed_ms(lambda: probe_rate(x, d), reps))
+            for lay in layouts:
+                times[lay].append(_elapsed_ms(lambda: run(lay), reps))
+    return times, bad
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    ap = argparse.ArgumentParser(description="float32 vs bfloat16 multiply-add chain rates")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time the chains' layouts in float32, bfloat16 and float16")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("probe_rate: torch sees no CUDA device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    for dtype, r in measure(torch.device("cuda")).items():
+    dev = torch.device("cuda")
+    for dtype, r in measure(dev).items():
         print(f"{dtype}: {r['ms']:7.3f} ms   ({r['tfma_s']:.2f} Tfma/s)   {card}")
+    if not args.sweep:
+        return
+    times, bad = sweep(dev)
+    fmas = fma_count(PANEL[0] * PANEL[1])
+    for k, ts in times.items():
+        name = k if isinstance(k, str) else "%-4s chains %d steps/block %2d threads %d" % k
+        print(f"{name:44s} {' '.join(f'{t:.4f}' for t in ts)} ms  "
+              f"{fmas / (min(ts) * 1e-3) / 1e12:.2f} Tfma/s  {card}")
+    print(f"layouts not bit-equal to the plain chain: {bad or 'none'}")
+    if bad:
+        sys.exit(1)
 
 
 if __name__ == "__main__":

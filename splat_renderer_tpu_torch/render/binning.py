@@ -1,29 +1,31 @@
-"""Sort-based tile binning: canonical record order + (tile, rank) pair sort.
+"""Sort-based tile binning: per-tile runs in canonical compositing order.
 
-Counterpart of `splat_renderer_tpu/render/binning.py`, exact profile only,
-in a layout suited to the GPU:
+Counterpart of `splat_renderer_tpu/render/binning.py`, in a layout suited
+to the GPU.  The canonical compositing order is ascending (depth, input
+index): bit-equal depths are common on symmetric scenes, so the
+input-index tie-break is part of the semantics.
 
-1. Record stage: records are ordered by (depth_bits, input index), the
-   pipeline's canonical compositing order (bit-equal depths are common on
-   symmetric scenes, so the input-index tie-break is part of the
-   semantics).  A record's position in that order is its *rank*.
-2. Pair stage: each record expands into up to `tiles_per_splat_cap`
-   (tile, rank) pairs, slot-major, padded to N*cap with the sentinel tile
-   `num_tiles` for inactive slots.  One `torch.sort` of the int64 key
-   `(tile << 32) | rank` orders them; no payload rides along, because the
-   rank is in the key.  Ranks are unique, so every tile's run is exactly
-   depth-ordered with deterministic ties.
+1. Each record expands into up to `tiles_per_splat_cap` (tile, record)
+   pairs, padded to N*cap with the sentinel tile `num_tiles` for inactive
+   slots.
+2. One `torch.sort` orders the pairs by an int64 key with the tile in its
+   high 32 bits.  The low bits are either the record's rank, for records
+   already in canonical order (unique, so any sort is deterministic), or
+   its 32-bit depth key, for records in input order (`bin_packed_words`):
+   a stable sort of record-major pairs then breaks depth ties by input
+   index, so every tile's run is in canonical order without a record sort.
 3. Per-tile counts come from `bincount`, offsets from `cumsum`.
 
 The blend reads a tile's run [offsets[t], offsets[t+1]) and gathers each
-record's words by rank from the canonical-order word planes.
+record's words by the pair's record index.
 
 Three binners share the pair stage (`_pair_stage`): `bin_packed_words` (the
-exact pipeline's quantized words), `bin_planes_diff` (the differentiable
-render's continuous f32 planes, read by csrc/tile_blend_diff.cu) and
-`bin_splats` (float records for the plain tile compositor).  The TPU
-package's 128-lane window tables (`stream_tables`, `block_*`) are not ported:
-a CUDA block walks its tile's run itself.
+exact pipeline's quantized words, in input order), `bin_planes_diff` (the
+differentiable render's continuous f32 planes, read by
+csrc/tile_blend_diff.cu) and `bin_splats` (float records for the plain tile
+compositor); the last two sort their records first.  The TPU package's
+128-lane window tables (`stream_tables`, `block_*`) are not ported: a CUDA
+block walks its tile's run itself.
 """
 
 from __future__ import annotations
@@ -163,16 +165,27 @@ def _pair_stage(
     cfg: RenderConfig,
     ang: Optional[torch.Tensor] = None,
     ratio: Optional[torch.Tensor] = None,
+    dkeys: Optional[torch.Tensor] = None,
 ) -> Binned:
-    """Expand canonical-order records (rank = row) into (tile, rank) pairs
-    and sort them.
+    """Expand records into (tile, record) pairs and sort them.
 
+    Without `dkeys` the records are in canonical order (rank = row).
     Slot-major (cap, n) expansion: slot c * n + rank holds footprint tile c
     of record `rank`, or the sentinel tile `num_tiles`.  One sort of the
     int64 key `(tile << 32) | rank` orders the N*cap slots; its indices are
     each sorted pair's slot (`pair_slot`), which the differentiable blend
-    uses to put per-pair gradients back at their record.  Returns offsets,
-    counts, pair_tile, pair_rank (int64) and pair_slot (int64).
+    uses to put per-pair gradients back at their record.
+
+    With `dkeys` (N,) the records are in input order (`bin_packed_words`):
+    record-major (n, cap) expansion, slot i * cap + c for record i, and one
+    stable sort of `(tile << 32) | dkey`.  Stability keeps equal keys in
+    slot order, which is input order (a record has at most one pair per
+    tile), so each tile's run is in (depth key, input index) order: the
+    canonical order, reached without a record sort.  pair_rank is then
+    the input index.
+
+    Returns offsets, counts, pair_tile, pair_rank (int64) and pair_slot
+    (int64).
     """
     n = cx.shape[0]
     cap = cfg.tiles_per_splat_cap
@@ -188,8 +201,14 @@ def _pair_stage(
     tile = (ty0[None, :] + dy) * cfg.tiles_x + (tx0[None, :] + dx)
     active = (c < (w * h)[None, :]) & ~((c == c_d[None, :]) & miss[None, :])
     tile = torch.where(active, tile, num_tiles)
-    rank = torch.arange(n, device=device)[None, :]
-    keys, pair_slot = torch.sort(((tile << 32) | rank).reshape(-1))
+    if dkeys is None:
+        rank = torch.arange(n, device=device)[None, :]
+        keys, pair_slot = torch.sort(((tile << 32) | rank).reshape(-1))
+        pair_rank = keys & 0xFFFFFFFF
+    else:
+        keys, pair_slot = torch.sort(((tile.t() << 32) | dkeys[:, None]).reshape(-1),
+                                     stable=True)
+        pair_rank = pair_slot // cap
     pair_tile = keys >> 32
 
     counts = torch.bincount(pair_tile, minlength=num_tiles + 1)[:num_tiles]
@@ -199,7 +218,7 @@ def _pair_stage(
         "offsets": offsets,
         "counts": counts,
         "pair_tile": pair_tile,
-        "pair_rank": keys & 0xFFFFFFFF,
+        "pair_rank": pair_rank,
         "pair_slot": pair_slot,
     }
 
@@ -229,42 +248,48 @@ def bin_packed_words(
 ) -> Binned:
     """Bin the projector's words into depth-ordered per-tile runs.
 
+    The records stay in input order: the pairs are keyed by
+    `(tile << 32) | depth key` and sorted stably from record-major slots,
+    so each tile's run is in (depth key, input index) order, the canonical
+    order, with no sort of the records themselves.
+
     Returns:
       offsets (T+1,) int32: tile t's run is pairs [offsets[t], offsets[t+1])
       counts (T,) int32: exact pairs per tile
-      pair_rank (N*cap,) int32: rank of each pair's record, sorted by
-          (tile, rank); the inactive tail holds the sentinel pairs
+      pair_rank (N*cap,) int32: input index of each pair's record, sorted
+          by (tile, depth key, input index); the inactive tail holds the
+          sentinel pairs
       pair_tile (N*cap,) int32: tile of each pair (num_tiles = inactive)
-      rec_pos, rec_ro, rec_rgb (N,) int32: the records' words in canonical
-          order (bit patterns of the u32 words), indexed by rank
-      order (N,) int64: input index of each rank
+      rec_pos, rec_ro, rec_rgb (N,) int32: the input words (bit patterns of
+          the u32 words), indexed by pair_rank
       rec_depth (N,) int32, only with_depth (the G-buffer stream): the bit
           pattern of each record's float depth, `dk & 0x7FFFFFFF`, the
           inverse of `packing.depth_bits` for the positive depths
           projection emits (culled records read +inf and have no pairs).
-          Records stay in canonical order and pairs carry ranks, so depth
-          is one more plane indexed by rank: no sort payload, as the TPU
-          package's pair stream needs.
+          Depth is one more plane indexed by pair_rank: no sort payload,
+          as the TPU package's pair stream needs.
 
-    Only the exact profile is implemented: the JAX package's fast_math and
-    depth_key_order orderings, compact_to (band compaction) and class_caps
+    The turbo profile's two orderings (`turbo_render_config`) are accepted
+    and change nothing:
+      - cfg.fast_math: the JAX package coarsens the rank by up to 4 low
+        bits where (tile, rank) does not fit its u32 sort key, letting
+        records of one 2^k-rank band composite in any order.  This key is
+        int64 and always fits, so the exact order stands: it is one of the
+        orders the flag allows.
+      - cfg.depth_key_order: the JAX package keys pairs by the depth key's
+        high bits to skip its record sort.  This binner never sorts
+        records and keys the whole depth key, so it is already the exact
+        profile's order and image.
+
+    compact_to (band compaction; multi-device) and class_caps
     (class-partitioned expansion) raise NotImplementedError.
     """
-    if cfg.fast_math or cfg.depth_key_order:
-        raise NotImplementedError(
-            "fast_math / depth_key_order pair orderings are not ported; "
-            "the PyTorch binner implements the exact profile only"
-        )
     if compact_to is not None or class_caps is not None:
         raise NotImplementedError("compact_to and class_caps are not ported")
     ps, po = cfg.pos_scale, cfg.pos_offset
     inv_ps = 1.0 / ps
 
-    # ---- record stage: canonical rank ----
-    order = canonical_order(dkeys)
-    dk_s, w_pos, w_ro, w_rgb = dkeys[order], w_pos[order], w_ro[order], w_rgb[order]
-
-    # footprints from the sorted words (unpacked values are grid-exact f32)
+    # footprints from the words (unpacked values are grid-exact f32)
     f = lambda x: x.to(torch.float32)
     cx = f(w_pos & 0xFFFF) * inv_ps - po
     cy = f(w_pos >> 16) * inv_ps - po
@@ -274,7 +299,7 @@ def bin_packed_words(
         ratio = f(w_ro >> 24) * INV_RATIO_SCALE
     else:
         ang = ratio = None
-    pairs = _pair_stage(cx, cy, r, dk_s < _INF_KEY, cfg, ang=ang, ratio=ratio)
+    pairs = _pair_stage(cx, cy, r, dkeys < _INF_KEY, cfg, ang=ang, ratio=ratio, dkeys=dkeys)
     out = {
         "offsets": pairs["offsets"].to(torch.int32),
         "counts": pairs["counts"].to(torch.int32),
@@ -283,10 +308,9 @@ def bin_packed_words(
         "rec_pos": as_int32_bits(w_pos),
         "rec_ro": as_int32_bits(w_ro),
         "rec_rgb": as_int32_bits(w_rgb),
-        "order": order,
     }
     if with_depth:
-        out["rec_depth"] = (dk_s & 0x7FFFFFFF).to(torch.int32)
+        out["rec_depth"] = (dkeys & 0x7FFFFFFF).to(torch.int32)
     return out
 
 

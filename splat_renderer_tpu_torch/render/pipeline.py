@@ -12,7 +12,6 @@ is given live there; nothing picks a device by default.
 
 from __future__ import annotations
 
-import logging
 import math
 import statistics
 from collections import OrderedDict
@@ -33,13 +32,12 @@ from ..points import (
 from ..points.properties import Splats
 from ..sdf.primitives import Box, Sphere
 from ..sdf.scene import Params, SDFScene, smooth_union
+from ..utils.log import log_rebuild
 from .binning import bin_packed_words, bin_splats, canonical_sort_data
 from .compositor import render_tiles, tiles_to_image, tiles_to_plane
 from .oracle import render_oracle
 from .projector import splat_screen_records, splat_screen_words
 from .sh import apply_sh
-
-logger = logging.getLogger("splat_renderer_tpu_torch")
 
 
 def surface_splats(
@@ -253,7 +251,7 @@ class Engine:
         h = self.scene.structure_hash()
         n = self._n_by_structure.get(h)
         if n is None:
-            logger.info("new frame state for scene structure %s", h)
+            log_rebuild(h)
             n = self._n if self._n is not None else point_count(self.scene, self.pcfg)
             while len(self._n_by_structure) >= self.CACHE_SIZE:
                 self._n_by_structure.popitem(last=False)

@@ -1,4 +1,29 @@
 """Host-side helpers: `ssim` (the 3DGS training loss and the host-side
 quality scoreboard), `snapshot` (splat sets and training-state pytrees in
-.npz), `ply` (3DGS `.ply` scenes) and `image` (PNG files and uint8
-quantization)."""
+.npz), `ply` (3DGS `.ply` scenes), `image` (PNG files and uint8
+quantization), `timing` (CUDA-event stage timing), `log` (the package
+logger) and `profiling` (`torch.profiler` traces)."""
+from .image import to_uint8, write_png
+from .log import log_point_budget, log_rebuild, logger
+from .ply import load_ply, save_ply
+from .profiling import annotate, trace
+from .snapshot import load_pytree, load_splats, save_pytree, save_splats
+from .timing import StageTimer, time_fn
+
+__all__ = [
+    "StageTimer",
+    "annotate",
+    "load_ply",
+    "load_pytree",
+    "load_splats",
+    "log_point_budget",
+    "log_rebuild",
+    "logger",
+    "save_ply",
+    "save_pytree",
+    "save_splats",
+    "time_fn",
+    "to_uint8",
+    "trace",
+    "write_png",
+]

@@ -315,16 +315,19 @@ def test_residual_last_product_is_one_minus_alpha():
         assert float((got - want).abs().max()) <= 1e-6
 
 
-def _deep_tile(profile, n=400):
-    """One 16x16 tile under n opacity-1 records wide enough to reach all of
+def _deep_planes(n=400):
+    """n opacity-1 records over one 16x16 tile, wide enough to reach all of
     it: every pixel's T underflows to exactly 0."""
-    cfg = tpt.RenderConfig(width=16, height=16, **PROFILES[profile])
     rng = np.random.default_rng(5)
     cols = [rng.uniform(0, 16, n), rng.uniform(0, 16, n), rng.uniform(8.0, 16.0, n),
             np.ones(n), rng.uniform(0, 1, n), rng.uniform(0, 1, n), rng.uniform(0, 1, n),
             rng.uniform(-np.pi, np.pi, n), rng.uniform(0.5, 1.0, n), rng.uniform(1, 9, n)]
-    planes = {k: torch.tensor(c, dtype=torch.float32) for k, c in zip(_PLANE_NAMES, cols)}
-    return cfg, bin_planes_diff(planes, cfg)
+    return {k: torch.tensor(c, dtype=torch.float32) for k, c in zip(_PLANE_NAMES, cols)}
+
+
+def _deep_tile(profile, n=400):
+    cfg = tpt.RenderConfig(width=16, height=16, **PROFILES[profile])
+    return cfg, bin_planes_diff(_deep_planes(n), cfg)
 
 
 @pytest.mark.parametrize("profile", ["isotropic", "oriented"])
@@ -341,3 +344,40 @@ def test_exact_zero_stop_changes_no_bit(profile):
     assert bool((go[1] == 1.0).all())
     for a, b in zip(go, stop):
         assert torch.equal(a, b)
+
+
+
+@pytest.mark.parametrize("field", ["r", "opacity"])
+def test_exact_zero_stop_on_non_finite_planes(field):
+    """A NaN colour or opacity in the last record of a tile whose pixels all
+    reached T == 0 before it.  The kernel's fold (it stops at T == 0) takes
+    nothing from that record and stays finite, bit-equal to the stream
+    without the NaN.  The twin and the JAX package's Pallas forward
+    (interpret mode) fold it in with weight 0 * NaN and agree on where
+    their outputs are NaN: `bin_planes_diff`'s clamp passes NaN through, as
+    JAX's clip does.  A divergence on non-finite input only, documented
+    here: finite planes are the kernels' domain (csrc/tile_blend_diff.cu)."""
+    import jax.numpy as jnp
+
+    import splat_renderer_tpu as spt
+    from splat_renderer_tpu.ops.tile_blend_diff import blend_planes_pallas
+
+    cfg = tpt.RenderConfig(width=16, height=16)
+    planes = _deep_planes()
+    last = int(torch.argmax(planes["depth"]))
+    planes[field] = planes[field].clone()
+    planes[field][last] = float("nan")
+    binned = bin_planes_diff(planes, cfg)
+    assert int(binned["pair_rank"][399]) == 399  # the deepest record is last
+    assert bool(torch.isnan(binned["planes"][399]).any())
+
+    _, clean = _deep_tile("isotropic")
+    stop = diff_fold_plain(binned, cfg, 32, stop_at_zero=True)
+    for got, want in zip(stop, diff_fold_plain(clean, cfg, 32, stop_at_zero=True)):
+        assert torch.equal(got, want)
+    twin = blend_binned_plain(binned, cfg)
+    jax_out = blend_planes_pallas(spt.RenderConfig(width=16, height=16), 1024, True,
+                                  *(jnp.asarray(planes[k].numpy()) for k in _PLANE_NAMES))
+    assert bool(torch.isnan(twin[0]).any())
+    for t, j in zip(twin, jax_out):
+        assert np.array_equal(torch.isnan(t).numpy(), np.isnan(np.asarray(j)))

@@ -14,7 +14,7 @@ import splat_renderer_tpu_torch as tpt
 from splat_renderer_tpu_torch.camera import camera_tensors
 from splat_renderer_tpu_torch.convert import splats_from_numpy
 from splat_renderer_tpu_torch.ops.tile_blend import blend_tiles, blend_tiles_plain
-from splat_renderer_tpu_torch.render.binning import bin_packed_words
+from splat_renderer_tpu_torch.render.binning import bin_packed_words, canonical_order
 from splat_renderer_tpu_torch.render.projector import splat_screen_words
 
 pytestmark = pytest.mark.gpu
@@ -36,7 +36,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _binned(device, cfg, seed=0, n=4000, with_depth=False):
+def _binned(device, cfg, seed=0, n=4000, with_depth=False, presort=False):
     rng = np.random.default_rng(seed)
     pos = rng.uniform(-1, 1, (n, 3))
     nrm = rng.normal(size=(n, 3))
@@ -51,8 +51,11 @@ def _binned(device, cfg, seed=0, n=4000, with_depth=False):
     spl = splats_from_numpy(planes, device)
     cam = camera_tensors(tpt.Camera(aspect=cfg.width / cfg.height).arrays(), device)
     w = splat_screen_words(spl, cam["view_proj"], cam["cam_pos"], cfg)
-    return bin_packed_words(w["dk"], w["w_pos"], w["w_ro"], w["w_rgb"], cfg,
-                            with_depth=with_depth)
+    words = [w[k] for k in ("dk", "w_pos", "w_ro", "w_rgb")]
+    if presort:  # the records in canonical order before binning
+        order = canonical_order(w["dk"])
+        words = [x[order] for x in words]
+    return bin_packed_words(*words, cfg, with_depth=with_depth)
 
 
 @pytest.mark.parametrize("tiles", sorted(TILES))
@@ -116,25 +119,47 @@ def test_prefetch_kernel_skips_empty_tiles(cuda):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_rate_probe_matches_twin(cuda, dtype):
-    """The probe's chain against the mul-then-add loop.  Multiplying by 0.5
-    is exact, so each round rounds once in both: float32 must be equal bit
-    for bit; bfloat16 is held to one bfloat16 ulp at the chain's fixed point
-    2.0 (2**-6), in case PyTorch's bfloat16 add rounds otherwise."""
+    """The probe's interleaved chains against the mul-then-add loop, on its
+    panel and on a ragged one whose last block is partly empty.
+    Multiplying by 0.5 is exact, so each round rounds once in both: the
+    results are equal bit for bit in float32 and in bfloat16."""
     from splat_renderer_tpu_torch.ops.probe_rate import PANEL, probe_rate, probe_rate_plain
 
-    x = torch.rand(PANEL, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
-    for repeats in (0, 1, 5, 256):
-        before = probe_rate.launches
-        got = probe_rate(x, dtype, repeats=repeats, steps=3)
-        assert probe_rate.launches == before + 1
-        want = probe_rate_plain(x, dtype, repeats=repeats, steps=1)
-        torch.cuda.synchronize()
-        if dtype == "f32":
-            assert torch.equal(got, want), repeats
-        else:
-            assert float((got - want).abs().max()) <= 2.0 ** -6, repeats
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for shape in (PANEL, (2, 1001)):
+        x = torch.rand(shape, generator=g, device=cuda)
+        for repeats in (0, 1, 5, 256):
+            before = probe_rate.launches
+            got = probe_rate(x, dtype, repeats=repeats, steps=3)
+            assert probe_rate.launches == before + 1
+            want = probe_rate_plain(x, dtype, repeats=repeats, steps=1)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (shape, repeats)
     with pytest.raises(ValueError, match="dtype"):
         probe_rate(x, "fp8")
+
+
+@pytest.mark.parametrize("tiles", sorted(TILES))
+@pytest.mark.parametrize("with_depth", [False, True], ids=["rgb", "depth"])
+def test_kernels_on_a_depth_key_order_stream(cuda, with_depth, tiles):
+    """The turbo profile's depth-keyed stream (records in input order,
+    pairs carrying input indices): K1 and its depth form within 2e-5 of
+    the twin on it, and equal bit for bit to their output on the stream of
+    the same records sorted into canonical order before binning."""
+    cfg = tpt.RenderConfig(width=200, height=120, tiles_per_splat_cap=8, **TILES[tiles])
+    dko = _binned(cuda, cfg.replace(depth_key_order=True), with_depth=with_depth)
+    exact = _binned(cuda, cfg, with_depth=with_depth, presort=True)
+    assert not torch.equal(dko["pair_rank"], exact["pair_rank"])
+    kernel = "tile_blend_depth" if with_depth else "tile_blend"
+    before = blend_tiles.launches_by_kernel[kernel]
+    got = blend_tiles(dko, cfg, eps=0.0, with_depth=with_depth)
+    assert blend_tiles.launches_by_kernel[kernel] == before + 1
+    twin = blend_tiles_plain(dko, cfg, eps=0.0, with_depth=with_depth)
+    want = blend_tiles(exact, cfg, eps=0.0, with_depth=with_depth)
+    torch.cuda.synchronize()
+    for g, t, w in zip(got, twin, want):
+        assert float((g - t).abs().max()) <= 2e-5 * max(1.0, float(t.abs().max()))
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("tiles", sorted(TILES))

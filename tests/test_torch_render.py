@@ -142,16 +142,18 @@ def test_binning_matches_jax(case):
 
     jb = jax.jit(lambda r: j_bin_splats(j_canonical_sort_data(r, jc), jc))(jrec)
     joff, jsplat = np.asarray(jb["offsets"]), np.asarray(jb["pair_splat"])
-    toff, trank = tb["offsets"].numpy(), tb["pair_rank"].numpy()
+    toff, trec = tb["offsets"].numpy(), tb["pair_rank"].numpy()
     np.testing.assert_array_equal(toff, joff)
     assert toff[-1] > 0
-    for t in range(tc.num_tiles):
-        np.testing.assert_array_equal(trank[toff[t]:toff[t + 1]],
-                                      jsplat[joff[t]:joff[t + 1]], err_msg=f"tile {t}")
-    # the canonical order really is (depth key, input index)
+    # the JAX runs carry ranks in canonical order, (depth key, input
+    # index); the port's carry input indices in that order
     dk = tw["dk"].numpy()
-    order = tb["order"].numpy()
-    np.testing.assert_array_equal(order, np.lexsort((np.arange(dk.size), dk)))
+    order = np.lexsort((np.arange(dk.size), dk))
+    for t in range(tc.num_tiles):
+        np.testing.assert_array_equal(trec[toff[t]:toff[t + 1]],
+                                      order[jsplat[joff[t]:joff[t + 1]]], err_msg=f"tile {t}")
+    np.testing.assert_array_equal(tb["rec_pos"].numpy(), tw["w_pos"].numpy().astype(np.uint32)
+                                  .view(np.int32))
     assert np.all(tb["pair_tile"].numpy()[toff[-1]:] == tc.num_tiles)
 
 
@@ -170,10 +172,8 @@ def test_oracle_matches_jax(profile):
 def test_unsupported_binning_options_raise():
     tc = tcfg.RenderConfig(width=32, height=32)
     z = torch.zeros(4, dtype=torch.int64)
-    for cfg, kw in ((tc.replace(fast_math=True), {}),
-                    (tc.replace(depth_key_order=True), {}),
-                    (tc, dict(compact_to=2)), (tc, dict(class_caps=(1, 1)))):
+    for kw in (dict(compact_to=2), dict(class_caps=(1, 1))):
         with pytest.raises(NotImplementedError):
-            bin_packed_words(z, z, z, z, cfg, **kw)
+            bin_packed_words(z, z, z, z, tc, **kw)
     # the G-buffer stream is ported: it returns the depth plane
     assert "rec_depth" in bin_packed_words(z, z, z, z, tc, with_depth=True)

@@ -74,6 +74,27 @@ static-scene serving and datagen paths, and checks the images.  Phases:
      (exact, turbo, after a record sort), the frame (exact, turbo), K1 and
      the depth form (on the exact and the record-sorted stream), 5 of
      each, interleaved
+ 16. multi-device rendering and training (`parallel/`, `fit_splats_dp`)
+     under an NCCL process group of world size 1 on cuda:0 (NCCL refuses
+     two ranks on one GPU).  16a: `band_frame_fn` at the headline (slack
+     1.5) equal to `render_splats` bit for bit, with its stats;
+     `multichip_frame_fn(dp=1, sp=1)` over 8 orbit views, each equal to
+     `render_splats`; `render_views_data_parallel` over 8 views x 100k
+     splats at 512x512 equal to the per-view loop; 3 steps of
+     `fit_splats_dp(method="kernel")` over 8 views at 200k @512x512, losses
+     and theta equal to `fit_splats`' bit for bit, and K4/K5 vs the twin on
+     one of its views; CUDA-event times of each beside the single-device
+     path; the band frame's stages from its profiler spans; one step of
+     `fit_splats_dp` and of `fit_splats` under torch.profiler, side by
+     side.  16b: the depth bands of sp = 2 and 4, one after another on the
+     card: `depth_band` on the headline words, each band's records as its
+     rank would receive them, `bin_packed_words(compact_to=)` and K1's
+     partials folded by `over_merge`: within 3e-5 of the frame at eps 0 and
+     0.0101 at eps 0.01; each band's records, pairs, bin and K1 times
+     beside the frame's, and K1 vs the twin on a band stream.  Then the
+     tile bands of sp = 2 and 4 (`render_band`), stacked and equal to
+     `render_splats` bit for bit; each band's records and pairs, and its
+     record selection, bin and `render_band` times beside the frame's
 
 Beside each blend kernel's time at its stream it prints the share of the
 (record, warp) pairs that the kernels' warp-level culling removes there
@@ -1469,6 +1490,351 @@ def phase15_turbo(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_000
     return med
 
 
+def timed_ms(fn) -> float:
+    """CUDA-event ms of one call of fn."""
+    import torch
+
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1)
+
+
+def interleaved(fns: dict, reps: int = 3) -> dict:
+    """Median CUDA-event ms of each fn, `reps` rounds, the order of each
+    round reversed from the last."""
+    import statistics
+
+    times = {k: [] for k in fns}
+    keys = list(fns)
+    for i in range(reps):
+        for k in (keys if i % 2 == 0 else keys[::-1]):
+            times[k].append(timed_ms(fns[k]))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def span_times(prof, prefix: str, calls: int) -> dict:
+    """{span: (host ms, device-kernel ms)} a call, for the host-side
+    spans (`utils.profiling.annotate`) named prefix... in a torch.profiler
+    run of `calls` calls: the span's wall time on the host and the summed
+    time of the kernels launched inside it."""
+    import torch
+
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(prefix):
+            h, d = out.get(e.name[len(prefix):], (0.0, 0.0))
+            out[e.name[len(prefix):]] = (h + e.cpu_time_total / 1e3 / calls,
+                                         d + e.device_time_total / 1e3 / calls)
+    return out
+
+
+def profile_compare(fn_a, fn_b, warmup: int = 3, top: int = 6) -> str:
+    """One call each of fn_a and fn_b under torch.profiler, after `warmup`
+    untimed calls of each: their CUDA-event ms, device-kernel ms, kernel
+    and CUDA-runtime call counts, and the ops whose self host time or self
+    device time differs most between the two (a minus b)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn_a()
+        fn_b()
+    torch.cuda.synchronize()
+    runs = []
+    for fn in (fn_a, fn_b):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = timed_ms(fn)
+        ops = {}
+        for e in prof.key_averages():
+            cuda = e.device_type == torch.autograd.DeviceType.CUDA
+            ops[(e.key, cuda)] = (e.self_cpu_time_total / 1e3, e.self_device_time_total / 1e3,
+                                  e.count)
+        runs.append((wall, ops))
+    (wa, a), (wb, b) = runs
+    busy = [sum(v[1] for (k, cuda), v in ops.items() if cuda) for ops in (a, b)]
+    count = [sum(v[2] for (k, cuda), v in ops.items() if cuda) for ops in (a, b)]
+    api = [sum(v[2] for (k, cuda), v in ops.items() if not cuda and k.startswith("cuda"))
+           for ops in (a, b)]
+    zero = (0.0, 0.0, 0)
+    keys = set(a) | set(b)
+    host = sorted(keys, key=lambda k: -abs(a.get(k, zero)[0] - b.get(k, zero)[0]))[:top]
+    dev = sorted(keys, key=lambda k: -abs(a.get(k, zero)[1] - b.get(k, zero)[1]))[:top // 2]
+    fmt = lambda k, i: (f"{k[0][:48]} {a.get(k, zero)[i]:.3f} vs {b.get(k, zero)[i]:.3f} "  # noqa: E731
+                        f"(x{a.get(k, zero)[2]} vs x{b.get(k, zero)[2]})")
+    return (f"wall {wa:.3f} vs {wb:.3f} ms, device kernels {busy[0]:.3f} vs {busy[1]:.3f} ms "
+            f"({count[0]} vs {count[1]} kernels, {api[0]} vs {api[1]} CUDA runtime calls); "
+            "self host ms most apart: " + "; ".join(fmt(k, 0) for k in host)
+            + "; self device ms most apart: " + "; ".join(fmt(k, 1) for k in dev))
+
+
+def phase16_parallel(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_000,
+                     slack: float = 1.5):
+    """Multi-device rendering and training (`parallel/`, `fit_splats_dp`)
+    on the one card, under an NCCL process group of world size 1 that the
+    phase creates and destroys.  NCCL refuses two ranks on one GPU, so the
+    collectives run at one rank (16a) and the depth bands of sp = 2 and 4
+    run one after another on the card (16b).  Returns the launches and
+    kernel-vs-twin errors of K1, K4 and K5 on these paths."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from splat_renderer_tpu_torch import PointConfig, RenderConfig, orbit_ring
+    from splat_renderer_tpu_torch.camera import camera_tensors
+    from splat_renderer_tpu_torch.fit import fit_splats, fit_splats_dp
+    from splat_renderer_tpu_torch.ops.tile_blend import blend_tiles, blend_tiles_plain, reset_launches
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import diff_backward, diff_forward
+    from splat_renderer_tpu_torch.parallel import (
+        band_frame_fn, depth_band, make_mesh, multichip_frame_fn, rank_generator, render_band,
+        render_views_data_parallel,
+    )
+    from splat_renderer_tpu_torch.parallel.band import INF_KEY, WORDS, band_words, fold_bands
+    from splat_renderer_tpu_torch.parallel.sharding import _band_cfg, band_records
+    from splat_renderer_tpu_torch.render.binning import (
+        _compact_nearest, bin_packed_words, bin_splats, canonical_sort_data,
+    )
+    from splat_renderer_tpu_torch.render.compositor import render_tiles, tiles_to_image
+    from splat_renderer_tpu_torch.render.diff import render_diff
+    from splat_renderer_tpu_torch.render.multiview import camera_at
+    from splat_renderer_tpu_torch.render.pipeline import demo_scene, model_points, render_splats
+    from splat_renderer_tpu_torch.render.projector import splat_screen_records, splat_screen_words
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh()  # dp = sp = 1 on the default device, cuda:0
+        check(mesh.device == torch.device("cuda:0"), f"mesh device {mesh.device}")
+        scene, pcfg, rcfg, cam = demo_scene(), PointConfig(), headline_cfg, headline_cam
+        params = scene.params(dev)
+        seed = 16
+        out = {"k1_launches": 0}
+
+        # ---- 16a: the depth-band frame at one rank against the frame ----
+        band = band_frame_fn(scene, mesh, n, pcfg, rcfg, band_slack=slack)
+        reset_launches()
+        img, stats = band(params, cam, seed)
+        torch.cuda.synchronize()
+        out["k1_launches"] += blend_tiles.launches
+        check(blend_tiles.launches == 1, f"band frame launched K1 {blend_tiles.launches} times")
+        splats = model_points(scene, params, rank_generator(seed, 0, dev), n, pcfg, rcfg,
+                              device=dev)
+        ref = render_splats(splats, cam, rcfg, device=dev)
+        check(torch.equal(img, ref), "band frame (one rank) differs from render_splats")
+        stats = {k: int(v) for k, v in stats.items()}
+        check(stats["routed_records"] == 0 and not stats["band_overflow"],
+              f"band frame stats {stats}")
+        t_band = interleaved({"band frame": lambda: band.from_splats(splats, cam),
+                              "render_splats": lambda: render_splats(splats, cam, rcfg,
+                                                                     device=dev)})
+
+        # the band frame's stages: its "band/..." spans in a profiler trace
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                band.from_splats(splats, cam)
+            torch.cuda.synchronize()
+        t_stages = span_times(prof, "band/", 3)
+        check(len(t_stages) == 7, f"band frame spans {sorted(t_stages)}")
+        # K1 is launched by its wrapper, outside any aten op, and the
+        # profiler files its kernel under no span: read the kernel itself
+        k1_span = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and "tile_blend_kernel" in e.key) / 1e3 / 3
+
+        # ---- 16a: tile bands at dp = sp = 1, 8 orbit views ----
+        cams8 = camera_tensors(orbit_ring(8, aspect=rcfg.width / rcfg.height), dev)
+        multi = multichip_frame_fn(scene, mesh, n, pcfg, rcfg)
+        reset_launches()
+        views = multi.gather(multi(params, cams8, seed))
+        torch.cuda.synchronize()
+        out["k1_launches"] += blend_tiles.launches
+        check(blend_tiles.launches == 8, f"8 views launched K1 {blend_tiles.launches} times")
+        loop = lambda: torch.stack([render_splats(splats, camera_at(cams8, i), rcfg,  # noqa: E731
+                                                  device=dev) for i in range(8)])
+        check(torch.equal(views, loop()), "multichip views differ from render_splats")
+        t_multi = interleaved({"multichip 8 views": lambda: multi.from_splats(splats, cams8),
+                               "render_splats x 8": loop})
+
+        # ---- 16a: view-DP records, 8 views x 100k at 512x512 ----
+        vcfg = RenderConfig(width=512, height=512, base_radius=0.008, tiles_per_splat_cap=4)
+        spl_v = model_points(scene, params, torch.Generator(device=dev).manual_seed(17), 100_000,
+                             pcfg, vcfg, device=dev)
+        cams_v = camera_tensors(orbit_ring(8), dev)
+        records = torch.stack([splat_screen_records(spl_v, camera_at(cams_v, i)["view_proj"],
+                                                    camera_at(cams_v, i)["cam_pos"], vcfg)
+                               for i in range(8)])
+
+        def views_loop():
+            return torch.stack([render_tiles(canonical_sort_data(r), bin_splats(
+                canonical_sort_data(r), vcfg), vcfg) for r in records])
+
+        # render_tiles sums with index_add, whose CUDA form adds in any
+        # order: compare in its deterministic form, time the usual one
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            dp_views = render_views_data_parallel(records, mesh, vcfg)
+            check(torch.equal(dp_views, views_loop()), "render_views_data_parallel != loop")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        t_views = interleaved({"views DP": lambda: render_views_data_parallel(
+            records, mesh, vcfg), "per-view loop": views_loop}, reps=2)
+
+        # ---- 16a: fit_splats_dp, 3 steps over 8 views at 200k @512x512 ----
+        cfg_t, spl_t, _ = training_scene(dev)
+        cams_f = camera_tensors(orbit_ring(8), dev)
+        cam_list = [camera_at(cams_f, i) for i in range(8)]
+        with torch.no_grad():
+            targets = torch.stack([render_diff(spl_t, c, cfg_t, method="kernel")
+                                   for c in cam_list])
+        init = {k: torch.full_like(spl_t[k], 0.5) for k in APPEARANCE}
+        kw = dict(fields=APPEARANCE, steps=3, lr=1e-2, method="kernel", init=init)
+        diff_forward.launches = diff_backward.launches = 0
+        dp_fit, dp_losses = fit_splats_dp(spl_t, cams_f, targets, mesh, cfg_t, **kw)
+        torch.cuda.synchronize()
+        out["k4_launches"], out["k5_launches"] = diff_forward.launches, diff_backward.launches
+        check((diff_forward.launches, diff_backward.launches) == (24, 24),
+              f"fit_splats_dp launched K4/K5 {diff_forward.launches}/{diff_backward.launches}")
+        one_fit, one_losses = fit_splats(spl_t, cam_list, list(targets), cfg_t, **kw)
+        check(torch.equal(dp_losses, one_losses), f"fit_splats_dp losses {dp_losses.tolist()} "
+              f"!= fit_splats {one_losses.tolist()}")
+        check(all(torch.equal(dp_fit[k], one_fit[k]) for k in APPEARANCE),
+              "fit_splats_dp theta differs from fit_splats")
+        t_fit = interleaved({
+            "fit_splats_dp 3 steps": lambda: fit_splats_dp(spl_t, cams_f, targets, mesh, cfg_t,
+                                                           **kw),
+            "fit_splats 3 steps": lambda: fit_splats(spl_t, cam_list, list(targets), cfg_t,
+                                                     **kw)}, reps=5)
+        fit_dp = lambda: fit_splats_dp(spl_t, cams_f, targets, mesh, cfg_t,  # noqa: E731
+                                       **dict(kw, steps=1))
+        fit_one = lambda: fit_splats(spl_t, cam_list, list(targets), cfg_t,  # noqa: E731
+                                     **dict(kw, steps=1))
+        fit_profile = ["fit_splats_dp first, against fit_splats: "
+                       + profile_compare(fit_dp, fit_one),
+                       "fit_splats first, against fit_splats_dp: "
+                       + profile_compare(fit_one, fit_dp)]
+        with torch.no_grad():
+            fp = training_planes(spl_t, cam_list[1], cfg_t)
+        f_planes = [fp[k].detach().clone().requires_grad_(True) for k in DIFF_PLANES]
+        out["k4_err"], out["k5_err"], rel, _ = diff_vs_twin(cfg_t, f_planes, 16)
+        log(f"phase 16a: NCCL world size 1 on {mesh.device}: band_frame_fn {n} splats "
+            f"@{rcfg.width}x{rcfg.height} {rcfg.tile_w}x{rcfg.tile_h} cap "
+            f"{rcfg.tiles_per_splat_cap} slack {slack}: image equal to render_splats bit for "
+            f"bit, stats {stats}; multichip_frame_fn(dp=1, sp=1) 8 orbit views each equal to "
+            f"render_splats; render_views_data_parallel 8 views x {spl_v['px'].shape[0]} "
+            f"@{vcfg.width}x{vcfg.height} equal to the per-view loop; fit_splats_dp 3 steps x 8 "
+            f"views {spl_t['px'].shape[0]} @{cfg_t.width}x{cfg_t.height}: losses "
+            + " ".join(f"{v:.6g}" for v in dp_losses.tolist())
+            + " equal to fit_splats' bit for bit, theta equal; K4/K5 launches 24/24, vs twin on "
+            f"view 1 K4 max-abs {out['k4_err']:.3g}, K5 gradient max-abs {out['k5_err']:.3g} "
+            f"(max-rel {max(rel.values()):.3g}); CUDA-event "
+            f"medians ms: " + "; ".join(f"{k} {v:.3f}" for t in (t_band, t_multi, t_views, t_fit)
+                                       for k, v in t.items())
+            + "; band frame stages (profiler spans, mean of 3, host / device-kernel ms) "
+            + " ".join(f"{k} {h:.3f}/{d:.3f}" for k, (h, d) in t_stages.items())
+            + f" (blend's K1 kernel {k1_span:.3f}, filed under no span); {card}")
+        for line in fit_profile:
+            log("phase 16a: one fit step under torch.profiler (after 3 untimed), " + line
+                + f"; {card}")
+
+        # ---- 16b: depth bands of sp = 2 and 4, one after another ----
+        w = splat_screen_words(splats, cam["view_proj"], cam["cam_pos"], rcfg)
+        words = torch.stack([w[k] for k in WORDS])
+        ref0 = render_splats(splats, cam, rcfg, blend_eps=0.0, device=dev)
+        full = bin_packed_words(*words, rcfg)
+        t_one = interleaved({"bin": lambda: bin_packed_words(*words, rcfg),
+                             "K1": lambda: blend_tiles(full, rcfg)})
+        out["k1_err"] = 0.0
+        rows = []
+        for sp in (2, 4):
+            capacity = math.ceil(slack * n / sp)
+            bands = depth_band(words[0], mesh.group, sp)
+            reset_launches()
+            parts = {0.0: ([], []), None: ([], [])}
+            streams = []
+            for b in range(sp):
+                received = band_words(words, bands, b)  # what rank b would receive, flattened
+                binned = bin_packed_words(*received, rcfg, compact_to=capacity)
+                for eps, (cs, als) in parts.items():
+                    c, a = blend_tiles(binned, rcfg, eps)
+                    cs.append(c)
+                    als.append(a)
+                streams.append((received, binned))
+            torch.cuda.synchronize()
+            out["k1_launches"] += blend_tiles.launches
+            check(blend_tiles.launches == 2 * sp, f"sp={sp}: K1 launches {blend_tiles.launches}")
+            img0 = tiles_to_image(*fold_bands(*parts[0.0]), rcfg)
+            img = tiles_to_image(*fold_bands(*parts[None]), rcfg)
+            d0 = float((img0 - ref0).abs().max())
+            de = float((img - ref0).abs().max())
+            check(d0 <= 3e-5, f"sp={sp}: band frame at eps 0 vs the frame {d0}")
+            check(de <= EARLY_EXIT_TOL, f"sp={sp}: band frame at eps 0.01 vs the frame {de}")
+            per_band = []
+            for b, (received, binned) in enumerate(streams):
+                n_valid = int((received[0] < INF_KEY).sum())
+                check(n_valid <= capacity, f"sp={sp} band {b}: {n_valid} records > {capacity}")
+                tb = interleaved({
+                    "bin": lambda: bin_packed_words(*received, rcfg, compact_to=capacity),
+                    "compaction": lambda: _compact_nearest(capacity, *received),
+                    "K1": lambda: blend_tiles(binned, rcfg)})
+                per_band.append(f"band {b}: {n_valid} records, {int(binned['offsets'][-1])} "
+                                f"pairs, bin {tb['bin']:.3f} ms (its compaction "
+                                f"{tb['compaction']:.3f}), K1 {tb['K1']:.3f} ms")
+            if sp == 2:  # K1 against its twin on a compacted band stream
+                binned = streams[0][1]
+                k = blend_tiles(binned, rcfg, eps=0.0)
+                p = blend_tiles_plain(binned, rcfg, eps=0.0, pair_chunk=8192)
+                torch.cuda.synchronize()
+                out["k1_err"] = max_diff(k, p)
+                check(out["k1_err"] <= EPS_TOL, f"K1 vs twin on band 0: {out['k1_err']}")
+            rows.append(f"sp={sp} (capacity {capacity}): eps 0 max-abs {d0:.3g} (<= 3e-05), "
+                        f"eps {rcfg.transmittance_eps} {de:.3g} (<= {EARLY_EXIT_TOL}); "
+                        + "; ".join(per_band))
+        log(f"phase 16b: depth bands one after another on the card, {n} splats "
+            f"@{rcfg.width}x{rcfg.height}: the frame's stream {int(full['offsets'][-1])} pairs, "
+            f"bin {t_one['bin']:.3f} ms, K1 {t_one['K1']:.3f} ms; " + "; ".join(rows)
+            + f"; K1 vs twin on sp=2 band 0 max-abs {out['k1_err']:.3g}; CUDA-event medians "
+            f"of 3; {card}")
+
+        # ---- 16b: tile bands of sp = 2 and 4, one after another ----
+        t_frame = interleaved({"frame render_band": lambda: render_band(w, 0, rcfg, 1)})
+        rows = []
+        for sp in (2, 4):
+            band_cfg = _band_cfg(rcfg, sp)
+            reset_launches()
+            img = torch.cat([render_band(w, b, rcfg, sp) for b in range(sp)])[:rcfg.height]
+            torch.cuda.synchronize()
+            out["k1_launches"] += blend_tiles.launches
+            check(blend_tiles.launches == sp, f"sp={sp}: tile bands launched K1 "
+                  f"{blend_tiles.launches} times")
+            check(torch.equal(img, ref), f"sp={sp}: tile bands differ from render_splats")
+            per_band = []
+            for b in range(sp):
+                recs = band_records(w, b, rcfg, band_cfg)
+                binned = bin_packed_words(recs["dk"], recs["w_pos"], recs["w_ro"],
+                                          recs["w_rgb"], rcfg)
+                t0, t1 = b * band_cfg.num_tiles, (b + 1) * band_cfg.num_tiles
+                pairs = int(binned["offsets"][t1] - binned["offsets"][t0])
+                tb = interleaved({
+                    "select": lambda: band_records(w, b, rcfg, band_cfg),
+                    "bin": lambda: bin_packed_words(recs["dk"], recs["w_pos"], recs["w_ro"],
+                                                    recs["w_rgb"], rcfg),
+                    "render_band": lambda: render_band(w, b, rcfg, sp)})
+                per_band.append(f"band {b}: {recs['dk'].shape[0]} records, {pairs} pairs, "
+                                f"select {tb['select']:.3f} ms, bin {tb['bin']:.3f} ms, "
+                                f"render_band {tb['render_band']:.3f} ms")
+            rows.append(f"sp={sp}: equal to render_splats bit for bit; " + "; ".join(per_band))
+        log(f"phase 16b: tile bands one after another on the card, {n} splats "
+            f"@{rcfg.width}x{rcfg.height}: the frame's bin {t_one['bin']:.3f} ms, render_band "
+            f"of the whole frame {t_frame['frame render_band']:.3f} ms; " + "; ".join(rows)
+            + f"; CUDA-event medians of 3; {card}")
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> None:
     import torch
 
@@ -1751,8 +2117,13 @@ def main() -> None:
 
     # ---- phase 15: the turbo profile at the headline shape ----
     phase15_turbo(dev, card, rcfg, cam)
-    log(f"phases 13-15: {t14 - t13:.1f} / {t15 - t14:.1f} / {time.perf_counter() - t15:.1f} s "
-        f"(host clock); the script so far {time.perf_counter() - t_start:.1f} s; {card}")
+    t16 = time.perf_counter()
+
+    # ---- phase 16: multi-device rendering and training at one rank ----
+    p16 = phase16_parallel(dev, card, rcfg, cam)
+    log(f"phases 13-16: {t14 - t13:.1f} / {t15 - t14:.1f} / {t16 - t15:.1f} / "
+        f"{time.perf_counter() - t16:.1f} s (host clock); the script so far "
+        f"{time.perf_counter() - t_start:.1f} s; {card}")
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "splat_renderer_tpu"
@@ -1772,8 +2143,9 @@ def main() -> None:
     f32, bf16 = p12["f32"], p12["bf16"]
     print(json.dumps({"kernels": [
         # one kernel is the port of both TPU schedules that compute its image
-        entry("tile_blend", blend_src, f"{jax_blend}:337, {jax_blend}:570", main_launches,
-              max(max_err, p13["err"]["k1"]), exact_ms, plain_exact_ms, k1_bound),
+        entry("tile_blend", blend_src, f"{jax_blend}:337, {jax_blend}:570",
+              main_launches + p16["k1_launches"], max(max_err, p13["err"]["k1"], p16["k1_err"]),
+              exact_ms, plain_exact_ms, k1_bound),
         # the same two TPU kernels' with_depth form (body at :96-113, :271-278)
         entry("tile_blend_depth", blend_src, f"{jax_blend}:337, {jax_blend}:570",
               p11["launches"], max(depth_err, p11["err"], p13["err"]["depth"]), p11["ms"],
@@ -1782,10 +2154,12 @@ def main() -> None:
         entry("tile_blend_xp", blend_src, f"{jax_blend}:422", p10["launches"],
               max(xp_err, p10["err"]), p10["ms"], p10["plain_ms"], p10["bound"]),
         entry("tile_blend_diff_fwd", diff_src, "splat_renderer_tpu/ops/tile_blend_diff.py:136",
-              p7["launches"][0], max(k4_err, k4_main_err, p13["err"]["k4"]), k4_ms, k4_plain,
+              p7["launches"][0] + p16["k4_launches"],
+              max(k4_err, k4_main_err, p13["err"]["k4"], p16["k4_err"]), k4_ms, k4_plain,
               k4_bound),
         entry("tile_blend_diff_bwd", diff_src, "splat_renderer_tpu/ops/tile_blend_diff.py:199",
-              p7["launches"][1], max(k5_err, k5_main_err, p13["err"]["k5"]), k5_ms, k5_plain,
+              p7["launches"][1] + p16["k5_launches"],
+              max(k5_err, k5_main_err, p13["err"]["k5"], p16["k5_err"]), k5_ms, k5_plain,
               k5_bound),
         # the float32 chain in the common keys, the bfloat16 chain beside it
         entry("probe_rate", "splat_renderer_tpu_torch/csrc/probe_rate.cu",

@@ -19,8 +19,11 @@ is easy to find.  This package imports torch and never jax.
             csrc/tile_blend_diff.cu, the differentiable blend's forward
             and backward; csrc/probe_rate.cu, the arithmetic-rate probe),
             their wrappers and plain PyTorch twins.
+- `parallel`: multi-device rendering over torch.distributed (one process
+            a GPU): tile bands x view-DP (`multichip_frame_fn`), depth
+            bands with an all_to_all (`band_frame_fn`), view-DP records.
 - `fit`:    inverse rendering: `fit_splats` (Adam), `density_control`,
-            `fit_camera`.
+            `fit_camera`, and `fit_splats_dp` (views over the ranks).
 - `data`:   datasets on disk -> cameras and targets for fitting.
 - `viewer`: the HTTP viewer and the offline turntable.
 - `utils`:  SSIM and the training losses; splat and checkpoint files; 3DGS

@@ -8,8 +8,8 @@ autograd, and applies Adam.  The Adam update is optax's, written out
 root, the same float32 op order, and a state dict ({count, mu, nu}) that
 checkpoints as plain tensors.  Random draws (density control's jitter) come
 from a `torch.Generator`, whose state is part of the checkpoint.
-
-Not ported here: `fit_splats_dp` (multi-device data parallelism).
+`fit_splats_dp` splits the views over the ranks of a `parallel.Mesh`
+(torch.distributed).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ._torch_util import clip, div, maximum, minimum, sqrt_rn
+from ._torch_util import check_device, clip, div, maximum, minimum, sqrt_rn
 from .camera import CameraArrays, Camera, orbit_camera_arrays
 from .config import RenderConfig
 from .points.properties import Splats
@@ -79,6 +79,32 @@ def render_targets(
                         c, cfg, method=method)
             for c in cameras
         )
+
+
+def _loss_and_grads(theta, splats, sh_fixed, fit_sh, cameras, targets, cfg, method,
+                    loss_img, depth_targets=None, depth_weight=0.2):
+    """The mean per-view loss of `theta` over the views and its gradient
+    (a dict keyed like theta); the step of fit_splats and fit_splats_dp."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in theta.items()}
+    s = dict(splats, **{k: v for k, v in leaves.items() if ":" not in k})
+    sh_cur = {c: leaves[f"sh:{c}"] for c in ("r", "g", "b")} if fit_sh else sh_fixed
+    per_view = []
+    for i, (cam, t) in enumerate(zip(cameras, targets)):
+        s_v = apply_sh(s, sh_cur, cam["cam_pos"]) if sh_cur is not None else s
+        if depth_targets is not None:
+            gb = render_diff_gbuffer(s_v, cam, cfg, method=method)
+            l_v = loss_img(gb["rgb"], t)
+            dt = depth_targets[i]
+            mask = (dt > 0.0).to(torch.float32)
+            l_v = l_v + depth_weight * torch.sum(
+                torch.abs(gb["depth"] - dt) * mask) / maximum(torch.sum(mask), 1.0)
+        else:
+            l_v = loss_img(render_diff(s_v, cam, cfg, method=method), t)
+        per_view.append(l_v)
+    loss_val = div(sum(per_view), len(per_view))
+    grads = torch.autograd.grad(loss_val, list(leaves.values()),
+                                allow_unused=True, materialize_grads=True)
+    return loss_val.detach(), dict(zip(leaves, grads))
 
 
 def fit_splats(
@@ -152,30 +178,12 @@ def fit_splats(
         generator = torch.Generator(device=device).manual_seed(0)
 
     def step(theta, opt_state, splats, sh_fixed):
-        leaves = {k: v.detach().requires_grad_(True) for k, v in theta.items()}
-        s = dict(splats, **{k: v for k, v in leaves.items() if ":" not in k})
-        sh_cur = {c: leaves[f"sh:{c}"] for c in ("r", "g", "b")} if fit_sh else sh_fixed
-        per_view = []
-        for i, (cam, t) in enumerate(zip(cameras, targets)):
-            s_v = apply_sh(s, sh_cur, cam["cam_pos"]) if sh_cur is not None else s
-            if depth_targets is not None:
-                gb = render_diff_gbuffer(s_v, cam, cfg, method=method)
-                l_v = loss_img(gb["rgb"], t)
-                dt = depth_targets[i]
-                mask = (dt > 0.0).to(torch.float32)
-                l_v = l_v + depth_weight * torch.sum(
-                    torch.abs(gb["depth"] - dt) * mask) / maximum(torch.sum(mask), 1.0)
-            else:
-                l_v = loss_img(render_diff(s_v, cam, cfg, method=method), t)
-            per_view.append(l_v)
-        loss_val = div(sum(per_view), len(per_view))
-        grads = torch.autograd.grad(loss_val, list(leaves.values()),
-                                    allow_unused=True, materialize_grads=True)
-        grads = dict(zip(leaves, grads))
+        loss_val, grads = _loss_and_grads(theta, splats, sh_fixed, fit_sh, cameras, targets,
+                                          cfg, method, loss_img, depth_targets, depth_weight)
         pos_g = (torch.abs(grads["px"]) + torch.abs(grads["py"]) + torch.abs(grads["pz"])
                  if densify_every else None)
         theta, opt_state = adam_update(theta, grads, opt_state, lr)
-        return loss_val.detach(), theta, opt_state, pos_g
+        return loss_val, theta, opt_state, pos_g
 
     losses = []
     score = torch.zeros(splats["radius"].shape if densify_every else (), device=device)
@@ -266,6 +274,74 @@ def fit_splats(
                 state["sh"] = dict(sh_fixed)
             save_pytree(checkpoint_path, state)
     fitted = dict(splats, **{k: v for k, v in theta.items() if ":" not in k})
+    if fit_sh:
+        return fitted, torch.stack(losses), {c: theta[f"sh:{c}"] for c in ("r", "g", "b")}
+    return fitted, torch.stack(losses)
+
+
+def fit_splats_dp(
+    splats: Splats,
+    cameras: CameraArrays,  # tensors with a leading view axis V (orbit_ring format)
+    targets: torch.Tensor,  # (V, H, W, 3)
+    mesh,  # parallel.Mesh: every rank is one flat view axis
+    cfg: RenderConfig,
+    fields: Sequence[str] = FIT_FIELDS_APPEARANCE,
+    steps: int = 100,
+    lr: float = 3e-2,
+    method: str = "kernel",
+    loss: str = "l2",
+    init: Optional[Params] = None,
+    sh=None,
+    fit_sh: bool = False,
+):
+    """Multi-view fit with the views split over the mesh's ranks: gradient
+    data parallelism.  Called on every rank with the same arguments.
+
+    Each rank renders and differentiates its V / size views (method
+    "kernel": the CUDA forward and backward kernels on CUDA tensors), the
+    mean loss of its views and its gradients go through one all_reduce
+    SUM, divided by the rank count (JAX's pmean: over equal view counts the
+    mean of the ranks' means is the global mean), and every rank applies
+    the same Adam update to its replica of theta, which therefore stays
+    bit-identical across ranks.  On one rank the loss and theta are those
+    of `fit_splats` over the same views, bit for bit.  `sh`/`fit_sh` as in
+    fit_splats.  Returns (splats, (steps,) losses) [+ fitted sh if fit_sh],
+    the same on every rank."""
+    import torch.distributed as dist
+
+    from .render.multiview import camera_at
+
+    world = mesh.size
+    v = targets.shape[0]
+    if v % world:
+        raise ValueError(f"view count {v} must divide over {world} devices")
+    if not fields and not fit_sh:
+        raise ValueError("nothing to fit: fields is empty")
+    if fit_sh and sh is None:
+        raise ValueError("fit_sh=True needs an initial sh coefficient dict")
+    check_device(mesh.device, targets=targets, **{f"splats[{k!r}]": t for k, t in splats.items()})
+    loss_img = image_loss(loss)
+    vl = v // world
+    views = range(mesh.rank * vl, (mesh.rank + 1) * vl)
+    cams = [camera_at(cameras, i) for i in views]
+    tgts = [targets[i] for i in views]
+    theta = {k: (init[k] if init and k in init else splats[k]).detach().clone() for k in fields}
+    if fit_sh:
+        theta.update({f"sh:{c}": sh[c].detach().clone() for c in ("r", "g", "b")})
+    sh_fixed = None if fit_sh else sh
+    opt_state = adam_init(theta)
+    losses = []
+    for _ in range(steps):
+        loss_val, grads = _loss_and_grads(theta, splats, sh_fixed, fit_sh, cams, tgts, cfg,
+                                          method, loss_img)
+        flat = torch.cat([loss_val.reshape(1)] + [grads[k].reshape(-1) for k in theta])
+        dist.all_reduce(flat, group=mesh.group)
+        flat = div(flat, world)
+        parts = flat[1:].split([t.numel() for t in theta.values()])
+        grads = {k: g.reshape(theta[k].shape) for k, g in zip(theta, parts)}
+        theta, opt_state = adam_update(theta, grads, opt_state, lr)
+        losses.append(flat[0])
+    fitted = dict(splats, **{k: v_ for k, v_ in theta.items() if ":" not in k})
     if fit_sh:
         return fitted, torch.stack(losses), {c: theta[f"sh:{c}"] for c in ("r", "g", "b")}
     return fitted, torch.stack(losses)

@@ -9,6 +9,7 @@ from .binning import (
 from .blend import (
     composite_over_background,
     ellipse_cos_sin,
+    over_merge,
     segmented_exclusive_product,
     splat_alpha_planes,
 )
@@ -54,6 +55,7 @@ __all__ = [
     "diff_fields",
     "ellipse_cos_sin",
     "model_points",
+    "over_merge",
     "pixel_grid",
     "project_planes",
     "render_diff",

@@ -236,6 +236,48 @@ def canonical_sort_data(splat_data: torch.Tensor) -> torch.Tensor:
     return splat_data[order]
 
 
+def _compact_nearest(k: int, dkeys: torch.Tensor, *words: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The k records first in canonical order, in input order: dkeys and
+    each word plane gathered at their input indices."""
+    n = dkeys.shape[0]
+    if k < 1 or n >= 1 << 31:
+        raise ValueError(f"compact_to={k} of {n} records: need 1 <= compact_to and "
+                         "fewer than 2**31 records (the key holds a 31-bit index)")
+    iota = torch.arange(n, device=dkeys.device)
+    key = (dkeys << 31) | iota  # unique: exactly k keys are <= the k-th smallest
+    thresh = torch.topk(key, k, largest=False, sorted=False).values.max()
+    keep = key <= thresh
+    slot = torch.where(keep, torch.cumsum(keep, 0) - 1, k)  # the dropped share trash slot k
+    idx = torch.zeros(k + 1, dtype=torch.int64, device=dkeys.device).scatter_(0, slot, iota)[:k]
+    return (dkeys[idx],) + tuple(w[idx] for w in words)
+
+
+def _word_geometry(w_pos: torch.Tensor, w_ro: torch.Tensor, cfg: RenderConfig):
+    """cx, cy, radius (px) and, for oriented profiles, angle and ratio
+    (else None) of packed words: grid-exact float32."""
+    inv_ps, po = 1.0 / cfg.pos_scale, cfg.pos_offset
+    f = lambda x: x.to(torch.float32)  # noqa: E731
+    cx = f(w_pos & 0xFFFF) * inv_ps - po
+    cy = f(w_pos >> 16) * inv_ps - po
+    r = f(w_ro & 0xFFFF) * inv_ps
+    if not cfg.oriented:
+        return cx, cy, r, None, None
+    ang = f((w_ro >> 16) & 0xFF) * INV_ANGLE_SCALE - math.pi
+    ratio = f(w_ro >> 24) * INV_RATIO_SCALE
+    return cx, cy, r, ang, ratio
+
+
+def footprint_rows(
+    dkeys: torch.Tensor, w_pos: torch.Tensor, w_ro: torch.Tensor, cfg: RenderConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ty0, h) int64: the first tile row and the row count of each
+    record's footprint, as `bin_packed_words` expands it on cfg's frame
+    (h = 0: the record has no pairs)."""
+    cx, cy, r, ang, ratio = _word_geometry(w_pos, w_ro, cfg)
+    _, ty0, _, h = _footprint_cols(cx, cy, r, dkeys < _INF_KEY, cfg, ang=ang, ratio=ratio)
+    return ty0, h
+
+
 def bin_packed_words(
     dkeys: torch.Tensor,  # (N,) int64 depth keys (packing.depth_bits)
     w_pos: torch.Tensor,  # (N,) int64 cx_fx | cy_fx << 16
@@ -281,24 +323,26 @@ def bin_packed_words(
         records and keys the whole depth key, so it is already the exact
         profile's order and image.
 
-    compact_to (band compaction; multi-device) and class_caps
-    (class-partitioned expansion) raise NotImplementedError.
-    """
-    if compact_to is not None or class_caps is not None:
-        raise NotImplementedError("compact_to and class_caps are not ported")
-    ps, po = cfg.pos_scale, cfg.pos_offset
-    inv_ps = 1.0 / ps
+    compact_to: keep only the `compact_to` nearest records, the first
+    ones in canonical (depth key, input index) order, and drop the rest
+    before the pair stage, so every pair-scale buffer has compact_to * cap
+    slots (the depth-band renderer, `parallel/band.py`, sheds its routing
+    sentinels this way; the caller counts its valid records and flags an
+    overflow).  A capacity of at least N changes nothing.  The kept set is
+    found without sorting the records: the k-th smallest 63-bit key
+    `dk << 31 | index` (a radix select, `torch.topk`) is a threshold, and a
+    prefix sum scatters the records at or below it to their slots in input
+    order.  Nothing of this waits for the host.  The rec_* planes (and
+    rec_depth) then hold the kept records, in input order, and pair_rank
+    indexes them.
 
-    # footprints from the words (unpacked values are grid-exact f32)
-    f = lambda x: x.to(torch.float32)
-    cx = f(w_pos & 0xFFFF) * inv_ps - po
-    cy = f(w_pos >> 16) * inv_ps - po
-    r = f(w_ro & 0xFFFF) * inv_ps
-    if cfg.oriented:
-        ang = f((w_ro >> 16) & 0xFF) * INV_ANGLE_SCALE - math.pi
-        ratio = f(w_ro >> 24) * INV_RATIO_SCALE
-    else:
-        ang = ratio = None
+    class_caps (class-partitioned expansion) raises NotImplementedError.
+    """
+    if class_caps is not None:
+        raise NotImplementedError("class_caps is not ported")
+    if compact_to is not None and int(compact_to) < dkeys.shape[0]:
+        dkeys, w_pos, w_ro, w_rgb = _compact_nearest(int(compact_to), dkeys, w_pos, w_ro, w_rgb)
+    cx, cy, r, ang, ratio = _word_geometry(w_pos, w_ro, cfg)
     pairs = _pair_stage(cx, cy, r, dkeys < _INF_KEY, cfg, ang=ang, ratio=ratio, dkeys=dkeys)
     out = {
         "offsets": pairs["offsets"].to(torch.int32),

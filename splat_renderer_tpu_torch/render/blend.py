@@ -132,6 +132,19 @@ def segmented_exclusive_product(
     return v
 
 
+def over_merge(
+    color_a: torch.Tensor,
+    alpha_a: torch.Tensor,
+    color_b: torch.Tensor,
+    alpha_b: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge two premultiplied (color (..., 3), alpha (...)) layers with A in
+    front of B: the associative 'over' fold that combines depth-ordered
+    partial composites, such as the depth bands of `parallel/band.py`."""
+    t_a = 1.0 - alpha_a
+    return color_a + t_a[..., None] * color_b, alpha_a + t_a * alpha_b
+
+
 def composite_over_background(
     color: torch.Tensor, alpha: torch.Tensor, cfg: RenderConfig
 ) -> torch.Tensor:

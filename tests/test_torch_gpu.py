@@ -586,3 +586,37 @@ def test_deep_tile_kernels_match_twin(cuda, profile):
             continue
         scale = float(pg.abs().max()) + 1e-12
         assert float((kg - pg).abs().max()) / scale < grad_tol, name
+
+
+@pytest.mark.parametrize("profile", ["isotropic", "oriented"])
+@pytest.mark.parametrize("shape", [(256, 128), (64, 1600)], ids=["landscape", "portrait"])
+def test_tile_bands_bit_equal_to_the_frame(cuda, shape, profile):
+    """`parallel.render_band`'s bands of sp 2 and 4, stacked, equal the
+    frame K1 blends, bit for bit: the kernel blends each tile from its run
+    alone, and a band's runs are the frame's (footprints cut by the band's
+    edges and shrunk by the tile cap included; the portrait's bands sit on
+    a grid twice as fine as the frame's)."""
+    from splat_renderer_tpu_torch.parallel import render_band
+    from splat_renderer_tpu_torch.render.compositor import tiles_to_image
+
+    width, height = shape
+    cfg = tpt.RenderConfig(width=width, height=height, tiles_per_splat_cap=4,
+                           **PROFILES[profile])
+    rng = np.random.default_rng(9)
+    n = 6000
+    pos = rng.uniform(-1, 1, (n, 3))
+    nrm = rng.normal(size=(n, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    planes = {"px": pos[:, 0], "py": pos[:, 1], "pz": pos[:, 2],
+              "radius": rng.uniform(0.005, 0.12, n), "cr": rng.uniform(0, 1, n),
+              "cg": rng.uniform(0, 1, n), "cb": rng.uniform(0, 1, n),
+              "opacity": rng.uniform(0.2, 1.0, n),
+              "nx": nrm[:, 0], "ny": nrm[:, 1], "nz": nrm[:, 2]}
+    spl = splats_from_numpy(planes, cuda)
+    cam = camera_tensors(tpt.Camera(aspect=width / height).arrays(), cuda)
+    w = splat_screen_words(spl, cam["view_proj"], cam["cam_pos"], cfg)
+    words = [w[k] for k in ("dk", "w_pos", "w_ro", "w_rgb")]
+    frame = tiles_to_image(*blend_tiles(bin_packed_words(*words, cfg), cfg), cfg)
+    for sp in (2, 4):
+        bands = torch.cat([render_band(w, b, cfg, sp) for b in range(sp)])
+        assert torch.equal(bands[:height], frame), sp

@@ -1,0 +1,1 @@
+"""Frozen copies of the port's plain modules (see `gpubench/reference/__init__.py`)."""

@@ -1516,10 +1516,10 @@ def interleaved(fns: dict, reps: int = 3) -> dict:
 
 
 def span_times(prof, prefix: str, calls: int) -> dict:
-    """{span: (host ms, device-kernel ms)} a call, for the host-side
-    spans (`utils.profiling.annotate`) named prefix... in a torch.profiler
-    run of `calls` calls: the span's wall time on the host and the summed
-    time of the kernels launched inside it."""
+    """{span: (host ms, device-kernel ms)} a call, for the program's spans
+    named prefix... in a `utils.profiling.trace` of `calls` calls (where
+    each span is a profiler range "splat/<name>"): the span's wall time on
+    the host and the summed time of the kernels launched inside it."""
     import torch
 
     out = {}
@@ -1582,7 +1582,6 @@ def phase16_parallel(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_
 
     import torch
     import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
 
     from splat_renderer_tpu_torch import PointConfig, RenderConfig, orbit_ring
     from splat_renderer_tpu_torch.camera import camera_tensors
@@ -1603,6 +1602,7 @@ def phase16_parallel(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_
     from splat_renderer_tpu_torch.render.multiview import camera_at
     from splat_renderer_tpu_torch.render.pipeline import demo_scene, model_points, render_splats
     from splat_renderer_tpu_torch.render.projector import splat_screen_records, splat_screen_words
+    from splat_renderer_tpu_torch.utils.profiling import RANGE_PREFIX, trace
 
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:
@@ -1632,11 +1632,11 @@ def phase16_parallel(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_
                                                                      device=dev)})
 
         # the band frame's stages: its "band/..." spans in a profiler trace
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with tempfile.TemporaryDirectory() as tmp, trace(tmp) as prof:
             for _ in range(3):
                 band.from_splats(splats, cam)
             torch.cuda.synchronize()
-        t_stages = span_times(prof, "band/", 3)
+        t_stages = span_times(prof, RANGE_PREFIX + "band/", 3)
         check(len(t_stages) == 7, f"band frame spans {sorted(t_stages)}")
         # K1 is launched by its wrapper, outside any aten op, and the
         # profiler files its kernel under no span: read the kernel itself

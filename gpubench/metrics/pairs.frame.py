@@ -1,0 +1,11 @@
+"""pairs.frame: the (tile, record) pairs binned a frame, in millions: the program's
+`pairs` counter (`offsets[-1]` of every binning, `render.binning._pair_stage`) over the
+binnings made inside `frame` spans in the traced run, divided by its `frame` calls."""
+
+from gpubench import program_spans
+
+program_spans.enable()
+
+
+def read(run):
+    return program_spans.pairs_per_call(run, "frame")

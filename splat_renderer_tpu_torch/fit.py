@@ -24,8 +24,9 @@ from .config import RenderConfig
 from .points.properties import Splats
 from .render.diff import render_diff, render_diff_gbuffer
 from .render.sh import apply_sh
-from .utils.ssim import image_loss
+from .utils.profiling import span
 from .utils.snapshot import checkpoint_file, load_pytree, save_pytree
+from .utils.ssim import image_loss
 
 FIT_FIELDS_APPEARANCE = ("cr", "cg", "cb", "opacity")
 FIT_FIELDS_GEOMETRY = ("px", "py", "pz", "radius")
@@ -44,6 +45,7 @@ def adam_init(theta: Params) -> Dict:
     }
 
 
+@span("fit/adam")
 def adam_update(
     theta: Params, grads: Params, state: Dict, lr: float,
     b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -93,17 +95,21 @@ def _loss_and_grads(theta, splats, sh_fixed, fit_sh, cameras, targets, cfg, meth
         s_v = apply_sh(s, sh_cur, cam["cam_pos"]) if sh_cur is not None else s
         if depth_targets is not None:
             gb = render_diff_gbuffer(s_v, cam, cfg, method=method)
-            l_v = loss_img(gb["rgb"], t)
-            dt = depth_targets[i]
-            mask = (dt > 0.0).to(torch.float32)
-            l_v = l_v + depth_weight * torch.sum(
-                torch.abs(gb["depth"] - dt) * mask) / maximum(torch.sum(mask), 1.0)
+            with span("fit/loss"):
+                l_v = loss_img(gb["rgb"], t)
+                dt = depth_targets[i]
+                mask = (dt > 0.0).to(torch.float32)
+                l_v = l_v + depth_weight * torch.sum(
+                    torch.abs(gb["depth"] - dt) * mask) / maximum(torch.sum(mask), 1.0)
         else:
-            l_v = loss_img(render_diff(s_v, cam, cfg, method=method), t)
+            img = render_diff(s_v, cam, cfg, method=method)
+            with span("fit/loss"):
+                l_v = loss_img(img, t)
         per_view.append(l_v)
     loss_val = div(sum(per_view), len(per_view))
-    grads = torch.autograd.grad(loss_val, list(leaves.values()),
-                                allow_unused=True, materialize_grads=True)
+    with span("fit/backward"):
+        grads = torch.autograd.grad(loss_val, list(leaves.values()),
+                                    allow_unused=True, materialize_grads=True)
     return loss_val.detach(), dict(zip(leaves, grads))
 
 
@@ -178,12 +184,14 @@ def fit_splats(
         generator = torch.Generator(device=device).manual_seed(0)
 
     def step(theta, opt_state, splats, sh_fixed):
-        loss_val, grads = _loss_and_grads(theta, splats, sh_fixed, fit_sh, cameras, targets,
-                                          cfg, method, loss_img, depth_targets, depth_weight)
-        pos_g = (torch.abs(grads["px"]) + torch.abs(grads["py"]) + torch.abs(grads["pz"])
-                 if densify_every else None)
-        theta, opt_state = adam_update(theta, grads, opt_state, lr)
-        return loss_val, theta, opt_state, pos_g
+        with span("fit/step"):
+            loss_val, grads = _loss_and_grads(theta, splats, sh_fixed, fit_sh, cameras,
+                                              targets, cfg, method, loss_img, depth_targets,
+                                              depth_weight)
+            pos_g = (torch.abs(grads["px"]) + torch.abs(grads["py"]) + torch.abs(grads["pz"])
+                     if densify_every else None)
+            theta, opt_state = adam_update(theta, grads, opt_state, lr)
+            return loss_val, theta, opt_state, pos_g
 
     losses = []
     score = torch.zeros(splats["radius"].shape if densify_every else (), device=device)
@@ -332,15 +340,16 @@ def fit_splats_dp(
     opt_state = adam_init(theta)
     losses = []
     for _ in range(steps):
-        loss_val, grads = _loss_and_grads(theta, splats, sh_fixed, fit_sh, cams, tgts, cfg,
-                                          method, loss_img)
-        flat = torch.cat([loss_val.reshape(1)] + [grads[k].reshape(-1) for k in theta])
-        dist.all_reduce(flat, group=mesh.group)
-        flat = div(flat, world)
-        parts = flat[1:].split([t.numel() for t in theta.values()])
-        grads = {k: g.reshape(theta[k].shape) for k, g in zip(theta, parts)}
-        theta, opt_state = adam_update(theta, grads, opt_state, lr)
-        losses.append(flat[0])
+        with span("fit/step"):
+            loss_val, grads = _loss_and_grads(theta, splats, sh_fixed, fit_sh, cams, tgts, cfg,
+                                              method, loss_img)
+            flat = torch.cat([loss_val.reshape(1)] + [grads[k].reshape(-1) for k in theta])
+            dist.all_reduce(flat, group=mesh.group)
+            flat = div(flat, world)
+            parts = flat[1:].split([t.numel() for t in theta.values()])
+            grads = {k: g.reshape(theta[k].shape) for k, g in zip(theta, parts)}
+            theta, opt_state = adam_update(theta, grads, opt_state, lr)
+            losses.append(flat[0])
     fitted = dict(splats, **{k: v_ for k, v_ in theta.items() if ":" not in k})
     if fit_sh:
         return fitted, torch.stack(losses), {c: theta[f"sh:{c}"] for c in ("r", "g", "b")}

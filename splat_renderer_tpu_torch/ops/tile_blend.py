@@ -42,6 +42,7 @@ import torch
 
 from ..config import RenderConfig
 from ..render.binning import Binned
+from ..utils.profiling import span
 from .._torch_util import maximum, minimum
 from ..render.blend import segmented_exclusive_product, splat_alpha_planes
 from ..render.packing import (
@@ -186,6 +187,7 @@ def staged_cut2(radius: torch.Tensor, opacity: torch.Tensor, ratio: torch.Tensor
     return torch.where(dead, -1.0, cut2), rr
 
 
+@span("blend")
 def blend_tiles(
     binned: Binned,
     cfg: RenderConfig,

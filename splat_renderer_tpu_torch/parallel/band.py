@@ -29,8 +29,9 @@ a pixel at its own transmittance floor, so the frame equals the
 single-device one within float rounding only with the early exit off
 (rcfg.transmittance_eps = 0); with it on, the floor bounds the difference.
 
-The stages run under named spans (`utils.profiling.annotate`, "band/..."),
-so a `torch.profiler` trace of a frame splits its time by stage.
+The stages run under spans (`utils.profiling.span`, "band/..."), so a
+recording (`utils.profiling.recording`) or a trace (`utils.profiling.trace`)
+of a frame splits its time by stage.
 
 A band keeps at most ceil(band_slack * n / sp) records; the deepest ones
 of an over-full band are dropped and flagged in the stats, never garbage.
@@ -55,7 +56,7 @@ from ..render.packing import U32_MASK, as_int32_bits
 from ..render.pipeline import model_points
 from ..render.projector import splat_screen_words
 from ..sdf.scene import Params, SDFScene
-from ..utils.profiling import annotate
+from ..utils.profiling import span
 from .sharding import Mesh, all_gather_into, rank_generator
 
 N_BUCKETS = 256
@@ -160,13 +161,13 @@ class BandFrame:
         mesh, sp, rcfg = self.mesh, self.sp, self.rcfg
         check_device(mesh.device, **{f"splats[{k!r}]": t for k, t in local.items()},
                      view_proj=camera["view_proj"])
-        with annotate("band/project"):
+        with span("band/project"):
             w = splat_screen_words(local, camera["view_proj"], camera["cam_pos"], rcfg)
             words = torch.stack([w[k] for k in WORDS])  # (4, n_local) int64
-        with annotate("band/depth_band"):
+        with span("band/depth_band"):
             band = depth_band(words[0], mesh.group, sp)
 
-        with annotate("band/route"):
+        with span("band/route"):
             # the (sp, 4, n_local) layout: block b goes to rank b, which gets
             # block s from rank s; u32 bit patterns on the wire (16 B a slot)
             send = as_int32_bits(torch.stack([band_words(words, band, b) for b in range(sp)]))
@@ -176,12 +177,12 @@ class BandFrame:
 
         # this band's capacity nearest records, binned and blended into
         # premultiplied partials (no background)
-        with annotate("band/bin"):
+        with span("band/bin"):
             n_valid = (received[0] < INF_KEY).sum()
             binned = bin_packed_words(*received, rcfg, compact_to=self.capacity)
-        with annotate("band/blend"):
+        with span("band/blend"):
             tile_color, tile_alpha = blend_tiles(binned, rcfg)
-        with annotate("band/merge"):
+        with span("band/merge"):
             mine = torch.cat([tile_color, tile_alpha[..., None]], dim=-1)  # (T, tp, 4)
             parts = torch.empty((sp * mine.shape[0],) + tuple(mine.shape[1:]),
                                 dtype=mine.dtype, device=mine.device)
@@ -189,7 +190,7 @@ class BandFrame:
             parts = parts.reshape((sp,) + tuple(mine.shape))
             img = tiles_to_image(*fold_bands(parts[..., :3], parts[..., 3]), rcfg)
 
-        with annotate("band/stats"):
+        with span("band/stats"):
             valid = words[0] < INF_KEY
             max_count = n_valid.reshape(1)
             dist.all_reduce(max_count, op=dist.ReduceOp.MAX, group=mesh.group)

@@ -37,6 +37,7 @@ import torch
 
 from .._torch_util import div, sqrt_rn
 from ..config import RenderConfig
+from ..utils.profiling import count, enabled, span
 from .blend import ellipse_cos_sin
 from .packing import INV_ANGLE_SCALE, INV_RATIO_SCALE, as_int32_bits
 
@@ -214,6 +215,8 @@ def _pair_stage(
     counts = torch.bincount(pair_tile, minlength=num_tiles + 1)[:num_tiles]
     offsets = torch.zeros(num_tiles + 1, dtype=torch.int64, device=device)
     offsets[1:] = torch.cumsum(counts, 0)
+    if enabled():
+        count("pairs", offsets[-1])
     return {
         "offsets": offsets,
         "counts": counts,
@@ -278,6 +281,7 @@ def footprint_rows(
     return ty0, h
 
 
+@span("bin")
 def bin_packed_words(
     dkeys: torch.Tensor,  # (N,) int64 depth keys (packing.depth_bits)
     w_pos: torch.Tensor,  # (N,) int64 cx_fx | cy_fx << 16

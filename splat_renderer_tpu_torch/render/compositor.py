@@ -24,6 +24,7 @@ import torch
 
 from .._torch_util import minimum
 from ..config import RenderConfig
+from ..utils.profiling import span
 from .binning import Binned
 from .blend import (
     composite_over_background,
@@ -32,6 +33,7 @@ from .blend import (
 )
 
 
+@span("image")
 def tiles_to_image(
     tile_color: torch.Tensor,  # (num_tiles, tile_pixels, 3)
     tile_alpha: torch.Tensor,  # (num_tiles, tile_pixels)

@@ -32,6 +32,7 @@ from .._torch_util import clip, maximum
 from ..camera import CameraArrays
 from ..config import RenderConfig
 from ..points.properties import Splats
+from ..utils.profiling import span
 from .binning import bin_splats, canonical_sort_data
 from .compositor import render_tiles, tiles_to_image, tiles_to_plane
 from .oracle import render_oracle
@@ -88,6 +89,7 @@ def _tiles_records(splats: Splats, camera: CameraArrays, cfg: RenderConfig):
     return data, bin_splats(data.detach(), cfg)
 
 
+@span("fit/render")
 def render_diff(
     splats: Splats,
     camera: CameraArrays,
@@ -112,6 +114,7 @@ def render_diff(
     raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
 
 
+@span("fit/render")
 def render_diff_gbuffer(
     splats: Splats,
     camera: CameraArrays,

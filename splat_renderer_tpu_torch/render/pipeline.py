@@ -33,6 +33,7 @@ from ..points.properties import Splats
 from ..sdf.primitives import Box, Sphere
 from ..sdf.scene import Params, SDFScene, smooth_union
 from ..utils.log import log_rebuild
+from ..utils.profiling import recording, span
 from .binning import bin_packed_words, bin_splats, canonical_sort_data
 from .compositor import render_tiles, tiles_to_image, tiles_to_plane
 from .oracle import render_oracle
@@ -48,9 +49,12 @@ def surface_splats(
     rcfg: RenderConfig,
 ) -> Splats:
     """Seed points -> k-step projection -> curvature -> splats."""
-    pts = project_to_surface(scene, params, pts, pcfg.descent_steps)
-    normals, scales = curvature_probe(scene, params, pts, pcfg)
-    return derive_splats(pts, normals, scales, rcfg)
+    with span("model/descent"):
+        pts = project_to_surface(scene, params, pts, pcfg.descent_steps)
+    with span("model/curvature"):
+        normals, scales = curvature_probe(scene, params, pts, pcfg)
+    with span("model/derive"):
+        return derive_splats(pts, normals, scales, rcfg)
 
 
 def model_points(
@@ -69,8 +73,10 @@ def model_points(
         check_device(device, **{f"params[{prim_id!r}][{k!r}]": v for k, v in p.items()})
     if generator.device.type != torch.device(device).type:
         raise ValueError(f"generator is on {generator.device}, expected {device}")
-    pts = seed_scene_points(generator, scene, params, n, pcfg)
-    return surface_splats(scene, params, pts, pcfg, rcfg)
+    with span("model"):
+        with span("model/seed"):
+            pts = seed_scene_points(generator, scene, params, n, pcfg)
+        return surface_splats(scene, params, pts, pcfg, rcfg)
 
 
 # blend_kernel names of the JAX package -> the port's blend schedules
@@ -268,44 +274,36 @@ class Engine:
 
     def frame(self, camera: CameraArrays, generator: torch.Generator) -> torch.Tensor:
         """Render one (H, W, 3) frame at the scene's current parameters."""
-        return render_splats(
-            self._frame_splats(camera, generator), camera, self.rcfg,
-            blend_kernel=self.blend_kernel, device=self.device,
-        )
+        with span("frame"):
+            return render_splats(
+                self._frame_splats(camera, generator), camera, self.rcfg,
+                blend_kernel=self.blend_kernel, device=self.device,
+            )
 
     def stage_profile(self, camera: CameraArrays, generator: torch.Generator,
                       iters: int = 3) -> Dict[str, float]:
         """Per-stage times of a frame at this camera in ms, by CUDA events:
-        the median of `iters` frames after one warm-up frame.  Keys:
-        "splats_ms" (the modeler, or SH lighting for a static set),
-        "project_ms", "bin_ms", "blend_ms", "image_ms".  Used by the
-        viewer's HUD.  {} for an engine that is not on a CUDA device: only
-        the card's own clock times its stages."""
+        the median of `iters` frames after one warm-up frame, read off the
+        frames' spans (`utils.profiling.recording`).  Keys: "splats_ms"
+        (the modeler, or SH lighting for a static set; 0 for a static set
+        without SH), "project_ms", "bin_ms", "blend_ms", "image_ms".  Used
+        by the viewer's HUD.  {} for an engine that is not on a CUDA
+        device: only the card's own clock times its stages."""
         if self.device.type != "cuda":
             return {}
-        from ..ops.tile_blend import blend_tiles
+        with recording() as rec:
+            for _ in range(iters + 1):
+                self.frame(camera, generator)
+                torch.cuda.synchronize(self.device)
 
-        names = ("splats_ms", "project_ms", "bin_ms", "blend_ms", "image_ms")
-        times = {k: [] for k in names}
-        schedule = _blend_schedule(self.blend_kernel)
-        rcfg = self.rcfg
-        for _ in range(iters + 1):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-            ev[0].record()
-            splats = self._frame_splats(camera, generator)
-            ev[1].record()
-            w = splat_screen_words(splats, camera["view_proj"], camera["cam_pos"], rcfg)
-            ev[2].record()
-            binned = bin_packed_words(w["dk"], w["w_pos"], w["w_ro"], w["w_rgb"], rcfg)
-            ev[3].record()
-            tiles = blend_tiles(binned, rcfg, schedule=schedule)
-            ev[4].record()
-            tiles_to_image(*tiles, rcfg)
-            ev[5].record()
-            torch.cuda.synchronize(self.device)
-            for k, a, b in zip(names, ev[:-1], ev[1:]):
-                times[k].append(a.elapsed_time(b))
-        return {k: statistics.median(v[1:]) for k, v in times.items()}
+        def median_ms(name: str) -> float:
+            ms = rec.device_ms(name)[1:]
+            return statistics.median(ms) if ms else 0.0
+
+        spans = {"splats_ms": "model" if self.scene is not None else "sh",
+                 "project_ms": "project", "bin_ms": "bin", "blend_ms": "blend",
+                 "image_ms": "image"}
+        return {k: median_ms(name) for k, name in spans.items()}
 
 
 class SplatEngine(Engine):

@@ -22,6 +22,7 @@ import torch
 from .._torch_util import clip, div, maximum, minimum, rdiv, sqrt_rn
 from ..config import RenderConfig
 from ..points.properties import Splats
+from ..utils.profiling import span
 from .packing import (
     ANGLE_SCALE,
     COLOR_SCALE,
@@ -253,6 +254,7 @@ def screen_planes(
     }
 
 
+@span("project")
 def splat_screen_words(
     splats: Splats,
     view_proj: torch.Tensor,

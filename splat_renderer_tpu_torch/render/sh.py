@@ -15,6 +15,7 @@ import torch
 
 from .._torch_util import clip
 from ..points.properties import Splats
+from ..utils.profiling import span
 
 SH_C0 = 0.28209479177387814
 SH_C1 = 0.4886025119029199
@@ -87,6 +88,7 @@ def sh_basis_planes(
     return tuple(out)
 
 
+@span("sh")
 def apply_sh(
     splats: Splats, sh: Optional[SHCoeffs], cam_pos: torch.Tensor,
     degree: Optional[int] = None,

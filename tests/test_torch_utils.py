@@ -1,6 +1,6 @@
 """The port's host helpers on the CPU: the rebuild notice once per scene
 structure (as tests/test_apps.py::TestObservability holds the JAX Engine's),
-`trace`/`annotate` over torch.profiler, and the timing harness."""
+`trace` over torch.profiler with the spans as its ranges, and the timing harness."""
 
 import io
 import json
@@ -13,9 +13,9 @@ import torch
 import splat_renderer_tpu_torch as tpt
 from splat_renderer_tpu_torch.camera import camera_tensors
 from splat_renderer_tpu_torch.render.pipeline import Engine
-from splat_renderer_tpu_torch.utils import (StageTimer, annotate, log_point_budget, logger,
-                                            time_fn, trace)
-from splat_renderer_tpu_torch.utils.profiling import TRACE_FILE
+from splat_renderer_tpu_torch.utils import (StageTimer, log_point_budget, logger, span, time_fn,
+                                            trace)
+from splat_renderer_tpu_torch.utils.profiling import RANGE_PREFIX, TRACE_FILE, enabled
 from splat_renderer_tpu_torch.utils.timing import time_fn_best
 
 
@@ -48,13 +48,18 @@ def test_rebuild_logged_once_per_structure():
 def test_trace_writes_the_annotated_span(tmp_path):
     log_dir = str(tmp_path / "trace")
     x = torch.arange(64.0)
+    with span("splat_test_span"):  # off: no range
+        (x * 2).sum()
     with trace(log_dir) as prof:
-        with annotate("splat_test_span"):
+        assert enabled()
+        with span("splat_test_span"):
             (x * 2).sum()
+    assert not enabled()
     path = os.path.join(log_dir, TRACE_FILE)
     events = json.load(open(path))["traceEvents"]
-    assert any(e.get("name") == "splat_test_span" for e in events)
-    assert any(e.key == "splat_test_span" for e in prof.key_averages())
+    name = RANGE_PREFIX + "splat_test_span"
+    assert any(e.get("name") == name for e in events)
+    assert [e.count for e in prof.key_averages() if e.key == name] == [1]
 
 
 def test_time_fn_and_stage_timer():

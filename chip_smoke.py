@@ -95,12 +95,19 @@ static-scene serving and datagen paths, and checks the images.  Phases:
      tile bands of sp = 2 and 4 (`render_band`), stacked and equal to
      `render_splats` bit for bit; each band's records and pairs, and its
      record selection, bin and `render_band` times beside the frame's
+ 17. the projector kernel (csrc/project_words.cu) at the headline shape:
+     the demo scene's 1M splats at 1920x1080 (the modeler's stride-3
+     columns) on the isotropic, the surface (foreshortened, opaque) and an
+     EWA config with the dilation: its five outputs bit-equal to the plain
+     path, its device time (the profiler's, L2 written over before each
+     launch, and warm) and its call time beside its bound (bytes over HBM
+     bandwidth) and the plain path's call time
 
 Beside each blend kernel's time at its stream it prints the share of the
 (record, warp) pairs that the kernels' warp-level culling removes there
 (computed with the culling test's plain mirror).
 
-It prints one JSON line describing the six kernels (each with its launches
+It prints one JSON line describing the seven kernels (each with its launches
 on its path, its time, the twin's time and the least time the card could
 take for the same work),
 then, as its last line,
@@ -1835,6 +1842,84 @@ def phase16_parallel(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_
         dist.destroy_process_group()
 
 
+def phase17_projector(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_000,
+                      reps: int = 20) -> dict:
+    """The projector kernel at the headline shape: the demo scene's splats
+    as the modeler makes them (position and normal as stride-3 columns) at
+    headline_cfg's 1920x1080, on three configs (isotropic, the surface
+    preset's foreshortened ellipses, EWA with the dilation).  Each: the
+    kernel's five outputs bit-equal to `splat_screen_words_plain`; the
+    kernel's device time (the profiler's, a launch, with the L2 cache
+    written over before each launch, and warm), the call's time (CUDA
+    events over `reps` calls back to back, so the host's issuing counts)
+    and the plain path's call time, beside the bound: the bytes once
+    (11 float32 planes in, four int64 words and the float32 depth out) over
+    HBM bandwidth.  Returns the isotropic config's numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import splat_renderer_tpu_torch as spt
+    from splat_renderer_tpu_torch.ops.project_words import project_words
+    from splat_renderer_tpu_torch.render.pipeline import demo_scene, model_points
+    from splat_renderer_tpu_torch.render.projector import (
+        splat_screen_words, splat_screen_words_plain,
+    )
+
+    scene = demo_scene()
+    splats = model_points(scene, scene.params(dev), torch.Generator(device=dev).manual_seed(17),
+                          n, spt.PointConfig(), headline_cfg, device=dev)
+    check(splats["px"].stride(0) == 3, "the modeler's positions are no longer columns")
+    vp, cp = headline_cam["view_proj"], headline_cam["cam_pos"]
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t  # noqa: E731
+    n_bytes = n * (11 * 4 + 4 * 8 + 4)
+    bnd = (n_bytes / HBM_BYTES_S * 1e3, "bytes")
+    cfgs = {
+        "isotropic": headline_cfg,
+        "surface": spt.surface_render_config(headline_cfg.width, headline_cfg.height,
+                                             tiles_per_splat_cap=8),
+        "ewa_aa": headline_cfg.replace(oriented=True, ellipse="ewa", aa_dilation=0.3),
+    }
+    out = {}
+    for name, cfg in cfgs.items():
+        call = lambda: splat_screen_words(splats, vp, cp, cfg)  # noqa: E731
+        plain = lambda: splat_screen_words_plain(splats, vp, cp, cfg)  # noqa: E731
+        before = (project_words.launches, splat_screen_words.launches)
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        check((project_words.launches, splat_screen_words.launches)
+              == (before[0] + 1, before[1] + 1), f"{name}: not one launch a call")
+        differ = {k: int((bits(got[k]) != bits(want[k])).sum()) for k in want}
+        check(not any(differ.values()), f"{name}: kernel vs plain path differ {differ}")
+        call_ms = elapsed_ms(call, reps)
+        plain_ms = elapsed_ms(plain, 5)
+        call_ms_2 = elapsed_ms(call, reps)
+        # the kernel's device time with the 50 MB L2 written over before each
+        # launch (its inputs and outputs are 80 MB: read back warm from L2 it
+        # beat HBM's bound), and warm, launch after launch
+        flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+        kernel_ms = {}
+        for cold in (True, False):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    if cold:
+                        flush.fill_(0)
+                    call()
+                torch.cuda.synchronize()
+            kernel_ms[cold] = sum(e.self_device_time_total for e in prof.key_averages()
+                                  if "project_words_kernel" in e.key) / 1e3 / reps
+            check(kernel_ms[cold] > 0, f"{name}: the profiler saw no project_words_kernel")
+        del flush
+        ms = kernel_ms[True]
+        valid = int(torch.isfinite(got["depth"]).sum())
+        log(f"phase 17: project_words {name} at {n} splats @{cfg.width}x{cfg.height} ({valid} "
+            f"in front): five outputs bit-equal to the plain path; kernel {ms:.4f} ms (device, "
+            f"profiler, L2 written over before each launch; warm {kernel_ms[False]:.4f}), call {call_ms:.4f} / {call_ms_2:.4f} ms (CUDA events, {reps} calls), "
+            f"plain path {plain_ms:.3f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}: {n_bytes / 1e6:.0f} "
+            f"MB), {100 * bnd[0] / ms:.1f}% of it; {card}")
+        out[name] = dict(ms=ms, call_ms=min(call_ms, call_ms_2), plain_ms=plain_ms, bound=bnd)
+    return out["isotropic"]
+
+
 def main() -> None:
     import torch
 
@@ -1856,6 +1941,7 @@ def main() -> None:
         Engine, animate_demo, demo_scene, model_points, render_splats,
     )
     from splat_renderer_tpu_torch.render.packing import U32_MASK, unpack_words
+    from splat_renderer_tpu_torch.ops.project_words import project_words
     from splat_renderer_tpu_torch.render.projector import splat_screen_words
 
     t_start = time.perf_counter()
@@ -1870,7 +1956,7 @@ def main() -> None:
     log(smi)
     card = smi  # name and power limit, beside every time
     t0 = time.perf_counter()
-    sources = ("tile_blend", "tile_blend_diff", "probe_rate")
+    sources = ("tile_blend", "tile_blend_diff", "probe_rate", "project_words")
     build.build_all(sources)  # one nvcc per source, in parallel
     for name in sources:
         build.load_library(name)
@@ -1978,12 +2064,16 @@ def main() -> None:
         return frame_ms, shares
 
     reset_launches()
+    # the projector kernel's launches on the main path: these 5 frames'
+    proj0 = project_words.launches
     frame_ms, shares = run_frames(eng, 5, 0.0, 0)
     main_launches = blend_tiles.launches_by_kernel["tile_blend"]
+    proj_launches = project_words.launches - proj0
     check(main_launches == blend_tiles.launches, "Engine frames launched another kernel")
     check(main_launches >= 5, f"tile_blend launched {main_launches} times in 5 frames")
+    check(proj_launches == 5, f"the projector kernel launched {proj_launches} times in 5 frames")
     log(f"phase 3: Engine 1M @1920x1080 32x16 cap 4, 5 frames: tile_blend launches "
-        f"{main_launches}; coverage {min(shares):.3f}..{max(shares):.3f} "
+        f"{main_launches}, project_words launches {proj_launches}; coverage {min(shares):.3f}..{max(shares):.3f} "
         f"(> {COVERAGE_FLOOR}); frame ms (CUDA events) "
         + " ".join(f"{t:.2f}" for t in frame_ms))
 
@@ -2121,6 +2211,9 @@ def main() -> None:
 
     # ---- phase 16: multi-device rendering and training at one rank ----
     p16 = phase16_parallel(dev, card, rcfg, cam)
+
+    # ---- phase 17: the projector kernel at the headline shape ----
+    p17 = phase17_projector(dev, card, rcfg, cam)
     log(f"phases 13-16: {t14 - t13:.1f} / {t15 - t14:.1f} / {t16 - t15:.1f} / "
         f"{time.perf_counter() - t16:.1f} s (host clock); the script so far "
         f"{time.perf_counter() - t_start:.1f} s; {card}")
@@ -2168,6 +2261,10 @@ def main() -> None:
               bf16_ms=bf16["ms"], bf16_plain_ms=bf16["plain_ms"],
               bf16_bound_ms=bf16["bound"][0], bf16_library_ms=bf16["lib_ms"],
               bf16_max_abs_err=bf16["err"]),
+        # bit-equal to the plain path, so its error is 0
+        entry("project_words", "splat_renderer_tpu_torch/csrc/project_words.cu", "none",
+              proj_launches, 0.0, p17["ms"], p17["plain_ms"], p17["bound"],
+              call_ms=p17["call_ms"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

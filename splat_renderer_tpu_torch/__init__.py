@@ -17,8 +17,9 @@ is easy to find.  This package imports torch and never jax.
 - `ops`:    the CUDA kernels (csrc/tile_blend.cu, the exact tile blend per
             tile and with cross-tile prefetch, with and without depth;
             csrc/tile_blend_diff.cu, the differentiable blend's forward
-            and backward; csrc/probe_rate.cu, the arithmetic-rate probe),
-            their wrappers and plain PyTorch twins.
+            and backward; csrc/probe_rate.cu, the arithmetic-rate probe;
+            csrc/project_words.cu, the projector in one launch), their
+            wrappers and plain PyTorch twins.
 - `parallel`: multi-device rendering over torch.distributed (one process
             a GPU): tile bands x view-DP (`multichip_frame_fn`), depth
             bands with an all_to_all (`band_frame_fn`), view-DP records.

@@ -1,0 +1,140 @@
+"""The projector's CUDA kernel: splats to packed record words in one launch.
+
+`project_words` launches `csrc/project_words.cu` on CUDA tensors and
+returns what `render/projector.py::splat_screen_words_plain` returns,
+bit for bit: {"dk", "w_pos", "w_ro", "w_rgb"} as int64 tensors holding u32
+values and "depth" as float32; `project_words.launches` counts its launches.
+`render/projector.py::splat_screen_words` calls it for CUDA tensors; CPU
+tensors take the plain path.  The kernel replaces no TPU kernel (the JAX package's projector
+is plain jnp that XLA fuses): it replaces the plain path's ~300 launches a
+call.
+
+The planes may be strided views (the modeler's columns of (N, 3) tensors):
+the kernel reads each at its own element stride, so nothing is copied.
+Nothing here reads back from the device: the camera stays where it is and
+the light direction is made once per (light_dir, device) on the device
+(`light_direction`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from .._torch_util import sqrt_rn
+from ..config import RenderConfig
+from ..render.packing import ANGLE_SCALE, COLOR_SCALE, POS_MAX, RATIO_SCALE
+
+# the kernel's plane order (csrc Plane enum)
+PLANES = ("px", "py", "pz", "radius", "cr", "cg", "cb", "opacity", "nx", "ny", "nz")
+ELLIPSES = ("isotropic", "foreshorten", "ewa")  # csrc Ellipse enum
+
+
+def _kernel_fn():
+    from .build import load_library
+
+    fn = load_library("project_words").project_words_forward
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+            + [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 2
+            + [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ellipse_model(cfg: RenderConfig) -> str:
+    """The plain path's branch of cfg: "ewa", "foreshorten" (any other
+    ellipse of an oriented config) or "isotropic".  This and `dilates`
+    repeat `shade_planes`' conditions; a CPU test holds them to the branch
+    `shade_planes` takes."""
+    if not cfg.oriented:
+        return "isotropic"
+    return "ewa" if cfg.ellipse == "ewa" else "foreshorten"
+
+
+def dilates(cfg: RenderConfig) -> bool:
+    """Whether the plain path applies the anti-aliasing dilation."""
+    return cfg.aa_dilation > 0.0 and not cfg.opaque
+
+
+@functools.lru_cache(maxsize=None)
+def light_direction(light_dir: Tuple[float, float, float], device: torch.device) -> torch.Tensor:
+    """The normalised light direction (3,) float32 on `device`, made by the
+    plain path's own operations (`shade_planes`), once per (light_dir,
+    device); callers only read it."""
+    light = torch.tensor(light_dir, dtype=torch.float32, device=device)
+    return light / sqrt_rn(torch.sum(light * light))
+
+
+@functools.lru_cache(maxsize=None)
+def _scalars(cfg: RenderConfig) -> ctypes.Array:
+    """cfg's Python scalars of the plain path as float32 (csrc Scalars)."""
+    return (ctypes.c_float * 15)(
+        0.5 * cfg.width, 0.5 * cfg.height, cfg.r_cap,
+        cfg.pos_scale, cfg.pos_offset, POS_MAX, COLOR_SCALE,
+        math.pi, ANGLE_SCALE, 1.0 / RATIO_SCALE, RATIO_SCALE,
+        cfg.light_ambient, cfg.light_diffuse, cfg.sigma * cfg.sigma, cfg.aa_dilation,
+    )
+
+
+def _check(name: str, t: torch.Tensor, device: torch.device, shape: tuple) -> None:
+    if t.dtype != torch.float32 or t.device != device or tuple(t.shape) != shape:
+        raise ValueError(
+            f"{name} must be a float32 tensor of shape {shape} on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+
+
+def project_words(
+    splats: Dict[str, torch.Tensor],
+    view_proj: torch.Tensor,  # (4, 4)
+    cam_pos: torch.Tensor,  # (3,)
+    cfg: RenderConfig,
+) -> Dict[str, torch.Tensor]:
+    """One kernel launch: splats -> {"dk", "w_pos", "w_ro", "w_rgb",
+    "depth"}, equal bit for bit to `splat_screen_words_plain` on the same
+    CUDA device.  Every plane, the camera and the outputs live on the
+    planes' device; raises ValueError on anything else."""
+    px = splats["px"]
+    device = px.device
+    if px.dim() != 1:
+        raise ValueError(f"splats['px'] must be 1-d, got shape {tuple(px.shape)}")
+    n = px.shape[0]
+    for name in PLANES:
+        _check(f"splats[{name!r}]", splats[name], device, (n,))
+    _check("view_proj", view_proj, device, (4, 4))
+    _check("cam_pos", cam_pos, device, (3,))
+    if device.type != "cuda":
+        raise ValueError(f"no projector kernel for device {device}")
+
+    light = light_direction(tuple(cfg.light_dir), device)
+    planes = (ctypes.c_void_p * 11)(*(splats[k].data_ptr() for k in PLANES))
+    strides = (ctypes.c_longlong * 11)(*(splats[k].stride(0) for k in PLANES))
+    words = {k: torch.empty(n, dtype=torch.int64, device=device)
+             for k in ("dk", "w_pos", "w_ro", "w_rgb")}
+    depth = torch.empty(n, dtype=torch.float32, device=device)
+    fn = _kernel_fn()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            planes, strides, view_proj.data_ptr(), view_proj.stride(0), view_proj.stride(1),
+            cam_pos.data_ptr(), cam_pos.stride(0), light.data_ptr(), _scalars(cfg),
+            words["dk"].data_ptr(), words["w_pos"].data_ptr(), words["w_ro"].data_ptr(),
+            words["w_rgb"].data_ptr(), depth.data_ptr(), n,
+            ELLIPSES.index(ellipse_model(cfg)), int(dilates(cfg)), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"project_words_forward launch failed: CUDA error {err}")
+    project_words.launches += 1
+    words["depth"] = depth
+    return words
+
+
+project_words.launches = 0

@@ -5,7 +5,10 @@ Counterpart of `splat_renderer_tpu/render/projector.py`: every field is
 computed for the whole (N,) batch as elementwise plane math, with the same
 op sequence as the JAX package, so the quantized words come out bit-equal
 (tests/test_torch_render.py).  Word arithmetic runs in int64 (see
-render/packing.py for why).  Every jnp.clip/minimum/maximum that a
+render/packing.py for why).  `splat_screen_words` launches one CUDA kernel
+for CUDA tensors (`ops/project_words.py`), which computes the plain path
+`splat_screen_words_plain` per splat, bit for bit; CPU tensors take the
+plain path.  Every jnp.clip/minimum/maximum that a
 gradient can reach is written with `_torch_util.clip`/`minimum`/`maximum`,
 which split the gradient at a bound as jnp does (`torch.clamp` would not),
 so the differentiable render (render/diff.py) gets JAX's gradients.  The
@@ -33,6 +36,7 @@ from .packing import (
     RATIO_SCALE,
     depth_bits,
 )
+from ..ops.project_words import project_words
 
 Projected = Dict[str, torch.Tensor]
 
@@ -264,7 +268,29 @@ def splat_screen_words(
     """Projection + appearance straight to the packed record words
     (render/packing.py layout), as int64 tensors holding u32 values.
 
-    Returns {"dk", "w_pos", "w_ro", "w_rgb", "depth"}."""
+    Returns {"dk", "w_pos", "w_ro", "w_rgb", "depth"}.  For CUDA planes
+    one launch of the projector kernel (`ops/project_words.py`; it raises
+    on inputs it does not take), which `project_words.launches` counts,
+    and `splat_screen_words.launches` with it for the calls made here; for
+    CPU planes `splat_screen_words_plain`."""
+    if splats["px"].device.type == "cpu":
+        return splat_screen_words_plain(splats, view_proj, cam_pos, cfg)
+    words = project_words(splats, view_proj, cam_pos, cfg)
+    splat_screen_words.launches += 1
+    return words
+
+
+splat_screen_words.launches = 0
+
+
+def splat_screen_words_plain(
+    splats: Splats,
+    view_proj: torch.Tensor,
+    cam_pos: torch.Tensor,
+    cfg: RenderConfig,
+) -> Dict[str, torch.Tensor]:
+    """`splat_screen_words` as plane operations, on any device: the
+    kernel's twin."""
     c = screen_planes(splats, view_proj, cam_pos, cfg)
     return {
         "dk": depth_bits(c["depth"]),

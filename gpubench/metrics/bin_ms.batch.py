@@ -1,0 +1,15 @@
+"""bin_ms.batch: the binner (`render/binning.py::bin_packed_words`, one call a view) in a batch, in
+ms: the mean CUDA-event ms of the program's `bin` span times its calls a `views` span, over
+every call of the traced run."""
+
+from gpubench import program_spans
+
+program_spans.enable()
+
+
+def read(run):
+    r = program_spans.readings(run)
+    if r is None or "bin" not in r.report or "views" not in r.report:
+        return None
+    per_batch = r.report["bin"]["calls"] / r.report["views"]["calls"]
+    return r.report["bin"]["device_ms_mean"] * per_batch

@@ -75,7 +75,8 @@ class RenderConfig:
     oriented: bool = False
     # Square-quad coverage for the opaque mode (only with opaque=True).
     quad: bool = False
-    # Screen-ellipse model for oriented splats: "foreshorten" or "ewa".
+    # Screen-ellipse model for oriented splats: "foreshorten", "ewa" or
+    # "cov3d" (full-covariance 3D Gaussians, points.COV3D_PLANES).
     ellipse: str = "foreshorten"
     # The turbo profile's pair orderings: approximate in the JAX package,
     # exact here (render/binning.py::bin_packed_words).

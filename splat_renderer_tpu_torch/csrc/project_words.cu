@@ -3,8 +3,9 @@
 // render/projector.py::splat_screen_words_plain computes as some 300 plane
 // operations over the whole set: the clip coordinates, the depth, the
 // screen radius over the 6 axial offsets, the Lambert light, the oriented
-// ellipse (foreshortened or EWA), the anti-aliasing dilation, the snap
-// onto the record grids and the packing into words (render/packing.py).
+// ellipse (foreshortened, EWA disc or full-covariance 3D Gaussian), the
+// anti-aliasing dilation, the snap onto the record grids and the packing
+// into words (render/packing.py).
 //
 // Replaces no TPU kernel: the JAX package's projector
 // (splat_renderer_tpu/render/projector.py) is plain jnp, which XLA fuses
@@ -13,9 +14,10 @@
 // splats while the device waited; this kernel is one launch.
 //
 // What bounds it on the H100: bytes.  A splat reads 11 float32 planes
-// (44 B) and writes four int64 words and its float32 depth (36 B): 80 MB
-// at 1M splats, 24 us at 3.35 TB/s.  Its ~300 flops, eight square roots,
-// a dozen divides and at most one atan2f are far below the FP32 rate.
+// (44 B; 18, 72 B, for a 3D Gaussian) and writes four int64 words and its
+// float32 depth (36 B): 80 MB at 1M splats, 24 us at 3.35 TB/s.  Its ~300
+// flops (~400 for a 3D Gaussian), eight square roots, a dozen divides and
+// at most one atan2f are far below the FP32 rate.
 // Design: one thread a splat, neighbouring threads on neighbouring splats,
 // so every plane's loads coalesce whatever its element stride (the
 // modeler's planes are columns of (N, 3) tensors, stride 3, read in place)
@@ -41,9 +43,14 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPlanes = 11;  // px py pz radius cr cg cb opacity nx ny nz
-enum Plane { kPx, kPy, kPz, kRadius, kCr, kCg, kCb, kOpacity, kNx, kNy, kNz };
-enum Ellipse { kIsotropic = 0, kForeshorten = 1, kEwa = 2 };
+// px py pz radius cr cg cb opacity nx ny nz, then a 3D Gaussian's scales
+// and quaternion (read by the kCov3d instantiations only)
+constexpr int kPlanes = 18;
+enum Plane {
+  kPx, kPy, kPz, kRadius, kCr, kCg, kCb, kOpacity, kNx, kNy, kNz,
+  kSx, kSy, kSz, kQw, kQx, kQy, kQz
+};
+enum Ellipse { kIsotropic = 0, kForeshorten = 1, kEwa = 2, kCov3d = 3 };
 
 // the plain path's Python scalars, as PyTorch rounds them to float32
 constexpr float kTiny = static_cast<float>(1e-8);  // _safe's floor, the norms' floor
@@ -64,6 +71,7 @@ struct Scalars {
   float ratio_min, ratio_scale;  // 1 / RATIO_SCALE, RATIO_SCALE
   float ambient, diffuse;
   float s2, aa;  // sigma^2 and aa_dilation
+  float sigma;
 };
 
 struct Camera {
@@ -166,10 +174,8 @@ project_words_kernel(Planes in, Camera cam, Scalars s, Words out, long long n) {
 
   float ell_radius = proj_radius;
   float angle = 0.0f, ratio = 1.0f;
-  if (ELLIPSE == kEwa) {
+  if (ELLIPSE == kEwa || ELLIPSE == kCov3d) {
     const float inv_w2 = 1.0f / (sw * sw);
-    const float nlen = t_max(__fsqrt_rn(nx * nx + ny * ny + nz * nz), kTiny);
-    const float ux = nx / nlen, uy = ny / nlen, uz = nz / nlen;
     // J rows: d sx / dp_k = Wh (vp0k w - clip0 vp3k)/w^2,
     //         d sy / dp_k = -Hh (vp1k w - clip1 vp3k)/w^2
     float j0[3], j1[3];
@@ -178,15 +184,46 @@ project_words_kernel(Planes in, Camera cam, Scalars s, Words out, long long n) {
       j0[k] = s.half_w * (vp[0][k] * w - clip[0] * vp[3][k]) * inv_w2;
       j1[k] = -s.half_h * (vp[1][k] * w - clip[1] * vp[3][k]) * inv_w2;
     }
-    const float a00 = j0[0] * j0[0] + j0[1] * j0[1] + j0[2] * j0[2];
-    const float a01 = j0[0] * j1[0] + j0[1] * j1[1] + j0[2] * j1[2];
-    const float a11 = j1[0] * j1[0] + j1[1] * j1[1] + j1[2] * j1[2];
-    const float jn0 = j0[0] * ux + j0[1] * uy + j0[2] * uz;
-    const float jn1 = j1[0] * ux + j1[1] * uy + j1[2] * uz;
-    const float r2 = rad * rad;
-    const float m00 = r2 * (a00 - jn0 * jn0);
-    const float m01 = r2 * (a01 - jn0 * jn1);
-    const float m11 = r2 * (a11 - jn1 * jn1);
+    float m00, m01, m11;
+    if (ELLIPSE == kEwa) {
+      // projector._disc_covariance: r^2 (J J^T - (J n)(J n)^T)
+      const float nlen = t_max(__fsqrt_rn(nx * nx + ny * ny + nz * nz), kTiny);
+      const float ux = nx / nlen, uy = ny / nlen, uz = nz / nlen;
+      const float a00 = j0[0] * j0[0] + j0[1] * j0[1] + j0[2] * j0[2];
+      const float a01 = j0[0] * j1[0] + j0[1] * j1[1] + j0[2] * j1[2];
+      const float a11 = j1[0] * j1[0] + j1[1] * j1[1] + j1[2] * j1[2];
+      const float jn0 = j0[0] * ux + j0[1] * uy + j0[2] * uz;
+      const float jn1 = j1[0] * ux + j1[1] * uy + j1[2] * uz;
+      const float r2 = rad * rad;
+      m00 = r2 * (a00 - jn0 * jn0);
+      m01 = r2 * (a01 - jn0 * jn1);
+      m11 = r2 * (a11 - jn1 * jn1);
+    } else {
+      // projector._gaussian_covariance: (J R S)(J R S)^T, R from the
+      // normalised quaternion (properties.quat_rotation)
+      const float qw = in.p[kQw][i * in.stride[kQw]];
+      const float qx = in.p[kQx][i * in.stride[kQx]];
+      const float qy = in.p[kQy][i * in.stride[kQy]];
+      const float qz = in.p[kQz][i * in.stride[kQz]];
+      const float qn = t_max(__fsqrt_rn(qw * qw + qx * qx + qy * qy + qz * qz), kTiny);
+      const float a = qw / qn, b = qx / qn, c = qy / qn, d = qz / qn;
+      const float rot[3][3] = {
+          {1.0f - 2.0f * (c * c + d * d), 2.0f * (b * c - a * d), 2.0f * (b * d + a * c)},
+          {2.0f * (b * c + a * d), 1.0f - 2.0f * (b * b + d * d), 2.0f * (c * d - a * b)},
+          {2.0f * (b * d - a * c), 2.0f * (c * d + a * b), 1.0f - 2.0f * (b * b + c * c)},
+      };
+      const float sc[3] = {in.p[kSx][i * in.stride[kSx]], in.p[kSy][i * in.stride[kSy]],
+                           in.p[kSz][i * in.stride[kSz]]};
+      float u0[3], u1[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        u0[k] = (j0[0] * rot[0][k] + j0[1] * rot[1][k] + j0[2] * rot[2][k]) * sc[k];
+        u1[k] = (j1[0] * rot[0][k] + j1[1] * rot[1][k] + j1[2] * rot[2][k]) * sc[k];
+      }
+      m00 = u0[0] * u0[0] + u0[1] * u0[1] + u0[2] * u0[2];
+      m01 = u0[0] * u1[0] + u0[1] * u1[1] + u0[2] * u1[2];
+      m11 = u1[0] * u1[0] + u1[1] * u1[1] + u1[2] * u1[2];
+    }
     // closed-form 2x2 symmetric eigendecomposition
     const float half_tr = 0.5f * (m00 + m11);
     const float half_df = 0.5f * (m00 - m11);
@@ -197,7 +234,9 @@ project_words_kernel(Planes in, Camera cam, Scalars s, Words out, long long n) {
     const float minor = __fsqrt_rn(lam_lo);
     // minor-axis direction = eigenvector of lam_lo: (m01, lam_lo - m00)
     angle = atan2f(lam_lo - m00, m01);
-    ell_radius = valid ? t_min(major, s.r_cap) : 0.0f;
+    // a Gaussian's major standard deviation is sigma * radius
+    const float major_r = ELLIPSE == kCov3d ? major / s.sigma : major;
+    ell_radius = valid ? t_min(major_r, s.r_cap) : 0.0f;
     ratio = t_clip(minor / t_max(major, kTiny), kRatioLo, 1.0f);
   } else if (ELLIPSE == kForeshorten) {
     const float vn = t_max(__fsqrt_rn(dx * dx + dy * dy + dz * dz), kTiny);
@@ -267,14 +306,15 @@ int launch(const Planes& in, const Camera& cam, const Scalars& s, const Words& o
 
 }  // namespace
 
-// One launch on `stream` over n splats.  planes: the 11 plane pointers in
-// the order of the Plane enum, each with its element stride; vp: view_proj
+// One launch on `stream` over n splats.  planes: the 18 plane pointers in
+// the order of the Plane enum, each with its element stride (the seven of a
+// 3D Gaussian may be null where ellipse is not 3); vp: view_proj
 // (4, 4) with its row and column strides; cam: cam_pos (3,) with its
 // stride; light: 3 contiguous floats; scalars: the Scalars fields in order
-// (15 floats); out: dk, w_pos, w_ro, w_rgb (int64) and depth (float32),
+// (16 floats); out: dk, w_pos, w_ro, w_rgb (int64) and depth (float32),
 // n contiguous elements each.  ellipse: 0 isotropic, 1 foreshorten,
-// 2 EWA; aa: 1 for the dilation.  Returns the CUDA error code of the
-// launch (0 for n == 0, which launches nothing).
+// 2 EWA, 3 3D Gaussian; aa: 1 for the dilation.  Returns the CUDA error
+// code of the launch (0 for n == 0, which launches nothing).
 extern "C" int project_words_forward(const float* const* planes, const long long* strides,
                                      const float* vp, long long vp_row, long long vp_col,
                                      const float* cam_pos, long long cam_stride,
@@ -292,7 +332,8 @@ extern "C" int project_words_forward(const float* const* planes, const long long
   const Camera cam{vp, vp_row, vp_col, cam_pos, cam_stride, light};
   const Scalars s{scalars[0], scalars[1], scalars[2],  scalars[3],  scalars[4],
                   scalars[5], scalars[6], scalars[7],  scalars[8],  scalars[9],
-                  scalars[10], scalars[11], scalars[12], scalars[13], scalars[14]};
+                  scalars[10], scalars[11], scalars[12], scalars[13], scalars[14],
+                  scalars[15]};
   const Words out{dk, w_pos, w_ro, w_rgb, depth};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (ellipse * 2 + (aa ? 1 : 0)) {
@@ -302,6 +343,8 @@ extern "C" int project_words_forward(const float* const* planes, const long long
     case 3: return launch<kForeshorten, true>(in, cam, s, out, n, st);
     case 4: return launch<kEwa, false>(in, cam, s, out, n, st);
     case 5: return launch<kEwa, true>(in, cam, s, out, n, st);
+    case 6: return launch<kCov3d, false>(in, cam, s, out, n, st);
+    case 7: return launch<kCov3d, true>(in, cam, s, out, n, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -27,11 +27,14 @@ import torch
 
 from .._torch_util import sqrt_rn
 from ..config import RenderConfig
+from ..points.properties import COV3D_PLANES
 from ..render.packing import ANGLE_SCALE, COLOR_SCALE, POS_MAX, RATIO_SCALE
 
-# the kernel's plane order (csrc Plane enum)
+# the kernel's plane order (csrc Plane enum): every model reads the first
+# eleven, "cov3d" the seven of COV3D_PLANES after them as well
 PLANES = ("px", "py", "pz", "radius", "cr", "cg", "cb", "opacity", "nx", "ny", "nz")
-ELLIPSES = ("isotropic", "foreshorten", "ewa")  # csrc Ellipse enum
+ALL_PLANES = PLANES + COV3D_PLANES
+ELLIPSES = ("isotropic", "foreshorten", "ewa", "cov3d")  # csrc Ellipse enum
 
 
 def _kernel_fn():
@@ -50,13 +53,13 @@ def _kernel_fn():
 
 
 def ellipse_model(cfg: RenderConfig) -> str:
-    """The plain path's branch of cfg: "ewa", "foreshorten" (any other
-    ellipse of an oriented config) or "isotropic".  This and `dilates`
-    repeat `shade_planes`' conditions; a CPU test holds them to the branch
-    `shade_planes` takes."""
+    """The plain path's branch of cfg: "ewa", "cov3d", "foreshorten" (any
+    other ellipse of an oriented config) or "isotropic".  This and
+    `dilates` repeat `shade_planes`' conditions; a CPU test holds them to
+    the branch `shade_planes` takes."""
     if not cfg.oriented:
         return "isotropic"
-    return "ewa" if cfg.ellipse == "ewa" else "foreshorten"
+    return cfg.ellipse if cfg.ellipse in ("ewa", "cov3d") else "foreshorten"
 
 
 def dilates(cfg: RenderConfig) -> bool:
@@ -76,11 +79,12 @@ def light_direction(light_dir: Tuple[float, float, float], device: torch.device)
 @functools.lru_cache(maxsize=None)
 def _scalars(cfg: RenderConfig) -> ctypes.Array:
     """cfg's Python scalars of the plain path as float32 (csrc Scalars)."""
-    return (ctypes.c_float * 15)(
+    return (ctypes.c_float * 16)(
         0.5 * cfg.width, 0.5 * cfg.height, cfg.r_cap,
         cfg.pos_scale, cfg.pos_offset, POS_MAX, COLOR_SCALE,
         math.pi, ANGLE_SCALE, 1.0 / RATIO_SCALE, RATIO_SCALE,
         cfg.light_ambient, cfg.light_diffuse, cfg.sigma * cfg.sigma, cfg.aa_dilation,
+        cfg.sigma,
     )
 
 
@@ -107,7 +111,12 @@ def project_words(
     if px.dim() != 1:
         raise ValueError(f"splats['px'] must be 1-d, got shape {tuple(px.shape)}")
     n = px.shape[0]
-    for name in PLANES:
+    model = ellipse_model(cfg)
+    names = ALL_PLANES if model == "cov3d" else PLANES
+    missing = [k for k in names if k not in splats]
+    if missing:
+        raise ValueError(f"ellipse model {model!r} needs the splat planes {missing}")
+    for name in names:
         _check(f"splats[{name!r}]", splats[name], device, (n,))
     _check("view_proj", view_proj, device, (4, 4))
     _check("cam_pos", cam_pos, device, (3,))
@@ -115,8 +124,11 @@ def project_words(
         raise ValueError(f"no projector kernel for device {device}")
 
     light = light_direction(tuple(cfg.light_dir), device)
-    planes = (ctypes.c_void_p * 11)(*(splats[k].data_ptr() for k in PLANES))
-    strides = (ctypes.c_longlong * 11)(*(splats[k].stride(0) for k in PLANES))
+    # planes a model does not read go in as null pointers
+    planes = (ctypes.c_void_p * len(ALL_PLANES))(
+        *(splats[k].data_ptr() if k in names else None for k in ALL_PLANES))
+    strides = (ctypes.c_longlong * len(ALL_PLANES))(
+        *(splats[k].stride(0) if k in names else 0 for k in ALL_PLANES))
     words = {k: torch.empty(n, dtype=torch.int64, device=device)
              for k in ("dk", "w_pos", "w_ro", "w_rgb")}
     depth = torch.empty(n, dtype=torch.float32, device=device)
@@ -128,7 +140,7 @@ def project_words(
             cam_pos.data_ptr(), cam_pos.stride(0), light.data_ptr(), _scalars(cfg),
             words["dk"].data_ptr(), words["w_pos"].data_ptr(), words["w_ro"].data_ptr(),
             words["w_rgb"].data_ptr(), depth.data_ptr(), n,
-            ELLIPSES.index(ellipse_model(cfg)), int(dilates(cfg)), stream,
+            ELLIPSES.index(model), int(dilates(cfg)), stream,
         )
     if err != 0:
         raise RuntimeError(f"project_words_forward launch failed: CUDA error {err}")

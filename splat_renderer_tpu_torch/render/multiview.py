@@ -16,6 +16,7 @@ import torch
 from ..camera import CameraArrays
 from ..config import RenderConfig
 from ..points.properties import Splats
+from ..utils.profiling import span
 from .pipeline import render_gbuffer, render_splats
 from .sh import apply_sh
 
@@ -53,18 +54,19 @@ def render_views(
     as_uint8 quantizes on the device (datagen: a quarter of the host
     transfer and no host-side conversion).  `sh` (render/sh.py) lights each
     view along its own camera ray: view-dependent colour is per view by
-    definition."""
-    out = []
-    for v in range(view_count(cameras)):
-        camera = camera_at(cameras, v)
-        s = apply_sh(splats, sh, camera["cam_pos"]) if sh is not None else splats
-        img = render_splats(s, camera, rcfg, compositor, device=device)
-        if as_uint8:
-            img = quantize_u8(img)
-        if flat:
-            img = img.reshape(rcfg.height, rcfg.width * 3)
-        out.append(img)
-    return torch.stack(out)
+    definition.  The batch is the program span `views`."""
+    with span("views"):
+        out = []
+        for v in range(view_count(cameras)):
+            camera = camera_at(cameras, v)
+            s = apply_sh(splats, sh, camera["cam_pos"]) if sh is not None else splats
+            img = render_splats(s, camera, rcfg, compositor, device=device)
+            if as_uint8:
+                img = quantize_u8(img)
+            if flat:
+                img = img.reshape(rcfg.height, rcfg.width * 3)
+            out.append(img)
+        return torch.stack(out)
 
 
 def render_views_gbuffer(
@@ -82,10 +84,12 @@ def render_views_gbuffer(
     was hit), alpha the composited coverage; both under the same over-blend
     weights as the colour, so the three channels are consistent per pixel.
     `sh` lights each view along its own camera ray, as in `render_views`;
-    `method` goes to `render_gbuffer`."""
-    views = []
-    for v in range(view_count(cameras)):
-        camera = camera_at(cameras, v)
-        s = apply_sh(splats, sh, camera["cam_pos"]) if sh is not None else splats
-        views.append(render_gbuffer(s, camera, rcfg, method, device=device))
-    return {k: torch.stack([g[k] for g in views]) for k in ("rgb", "depth", "alpha")}
+    `method` goes to `render_gbuffer`.  The batch is the program span
+    `views`."""
+    with span("views"):
+        views = []
+        for v in range(view_count(cameras)):
+            camera = camera_at(cameras, v)
+            s = apply_sh(splats, sh, camera["cam_pos"]) if sh is not None else splats
+            views.append(render_gbuffer(s, camera, rcfg, method, device=device))
+        return {k: torch.stack([g[k] for g in views]) for k in ("rgb", "depth", "alpha")}

@@ -33,11 +33,11 @@ from ..points.properties import Splats
 from ..sdf.primitives import Box, Sphere
 from ..sdf.scene import Params, SDFScene, smooth_union
 from ..utils.log import log_rebuild
-from ..utils.profiling import recording, span
+from ..utils.profiling import enabled, recording, span
 from .binning import bin_packed_words, bin_splats, canonical_sort_data
 from .compositor import render_tiles, tiles_to_image, tiles_to_plane
 from .oracle import render_oracle
-from .projector import splat_screen_records, splat_screen_words
+from .projector import count_cov3d, splat_screen_records, splat_screen_words
 from .sh import apply_sh
 
 
@@ -100,6 +100,8 @@ def _check_inputs(device, splats: Splats, camera: CameraArrays) -> None:
 def _words_and_bins(splats: Splats, camera: CameraArrays, rcfg: RenderConfig,
                     with_depth: bool = False):
     words = splat_screen_words(splats, camera["view_proj"], camera["cam_pos"], rcfg)
+    if enabled() and rcfg.oriented and rcfg.ellipse == "cov3d":
+        count_cov3d(words, rcfg)
     return bin_packed_words(
         words["dk"], words["w_pos"], words["w_ro"], words["w_rgb"], rcfg,
         with_depth=with_depth,

@@ -24,8 +24,8 @@ import torch
 
 from .._torch_util import clip, div, maximum, minimum, rdiv, sqrt_rn
 from ..config import RenderConfig
-from ..points.properties import Splats
-from ..utils.profiling import span
+from ..points.properties import COV3D_PLANES, Splats, quat_rotation
+from ..utils.profiling import count, span
 from .packing import (
     ANGLE_SCALE,
     COLOR_SCALE,
@@ -111,6 +111,42 @@ def project_planes(
     }
 
 
+def _disc_covariance(splats: Splats, j0, j1):
+    """The "ewa" model's screen covariance (m00, m01, m11) of a disc of
+    radius r and normal n: r^2 (J J^T - (J n)(J n)^T), J's rows j0, j1."""
+    nx, ny, nz = splats["nx"], splats["ny"], splats["nz"]
+    nlen = maximum(sqrt_rn(nx * nx + ny * ny + nz * nz), 1e-8)
+    ux, uy, uz = nx / nlen, ny / nlen, nz / nlen
+    a00 = j0[0] * j0[0] + j0[1] * j0[1] + j0[2] * j0[2]
+    a01 = j0[0] * j1[0] + j0[1] * j1[1] + j0[2] * j1[2]
+    a11 = j1[0] * j1[0] + j1[1] * j1[1] + j1[2] * j1[2]
+    jn0 = j0[0] * ux + j0[1] * uy + j0[2] * uz
+    jn1 = j1[0] * ux + j1[1] * uy + j1[2] * uz
+    r2 = splats["radius"] * splats["radius"]
+    return r2 * (a00 - jn0 * jn0), r2 * (a01 - jn0 * jn1), r2 * (a11 - jn1 * jn1)
+
+
+def _gaussian_covariance(splats: Splats, j0, j1):
+    """The "cov3d" model's screen covariance (m00, m01, m11) of a 3D
+    Gaussian: J Sigma J^T with Sigma = R(q) S S^T R(q)^T, taken as
+    (J R S)(J R S)^T, whose columns u_k = (J R)[:, k] s_k are the screen
+    images of the Gaussian's scaled axes.  Raises ValueError on splats
+    without `COV3D_PLANES`."""
+    missing = [k for k in COV3D_PLANES if k not in splats]
+    if missing:
+        raise ValueError(f'ellipse="cov3d" needs the splat planes {missing} '
+                         "(points.gaussian_splats, utils.ply.load_ply(covariance=True))")
+    rot = quat_rotation(splats["qw"], splats["qx"], splats["qy"], splats["qz"])
+    u0, u1 = [], []
+    for k, s in enumerate((splats["sx"], splats["sy"], splats["sz"])):
+        u0.append((j0[0] * rot[0][k] + j0[1] * rot[1][k] + j0[2] * rot[2][k]) * s)
+        u1.append((j1[0] * rot[0][k] + j1[1] * rot[1][k] + j1[2] * rot[2][k]) * s)
+    m00 = u0[0] * u0[0] + u0[1] * u0[1] + u0[2] * u0[2]
+    m01 = u0[0] * u1[0] + u0[1] * u1[1] + u0[2] * u1[2]
+    m11 = u1[0] * u1[0] + u1[1] * u1[1] + u1[2] * u1[2]
+    return m00, m01, m11
+
+
 def shade_planes(
     splats: Splats,
     view_proj: torch.Tensor,  # (4, 4)
@@ -124,8 +160,12 @@ def shade_planes(
     Oriented profiles: "foreshorten" puts the minor axis along the
     normal's screen projection with minor/major = |n . view|; "ewa" takes
     the eigendecomposition of the disc's perspective screen covariance
-    M = r^2 (J J^T - (J n)(J n)^T).  cfg.aa_dilation adds a pixel low-pass
-    to Gaussian profiles with opacity scaled to conserve mass.
+    M = r^2 (J J^T - (J n)(J n)^T); "cov3d" that of a 3D Gaussian's
+    M = J Sigma J^T (`COV3D_PLANES`), with radius sqrt(lam_hi) / sigma so
+    the profile's standard deviation is the Gaussian's (J: the world-space
+    Jacobian of the screen position; no clamp of the view angle).
+    cfg.aa_dilation adds a pixel low-pass to Gaussian profiles with
+    opacity scaled to conserve mass.
     """
     proj = project_planes(
         view_proj, cam_pos,
@@ -139,30 +179,23 @@ def shade_planes(
     lamb = cfg.light_ambient + cfg.light_diffuse * diffuse
 
     ell_radius = proj["radius"]
-    if cfg.oriented and cfg.ellipse == "ewa":
+    if cfg.oriented and cfg.ellipse in ("ewa", "cov3d"):
         vp = view_proj
         w = proj["clip3"]
         sw = _safe(w)
         inv_w2 = rdiv(1.0, sw * sw)
         half_w = 0.5 * cfg.width
         half_h = 0.5 * cfg.height
-        nlen = maximum(sqrt_rn(nx * nx + ny * ny + nz * nz), 1e-8)
-        ux, uy, uz = nx / nlen, ny / nlen, nz / nlen
         # J rows: d sx / dp_k = Wh (vp0k w - clip0 vp3k)/w^2,
         #         d sy / dp_k = -Hh (vp1k w - clip1 vp3k)/w^2
         j0 = [half_w * (vp[0, k] * w - proj["clip0"] * vp[3, k]) * inv_w2
               for k in range(3)]
         j1 = [-half_h * (vp[1, k] * w - proj["clip1"] * vp[3, k]) * inv_w2
               for k in range(3)]
-        a00 = j0[0] * j0[0] + j0[1] * j0[1] + j0[2] * j0[2]
-        a01 = j0[0] * j1[0] + j0[1] * j1[1] + j0[2] * j1[2]
-        a11 = j1[0] * j1[0] + j1[1] * j1[1] + j1[2] * j1[2]
-        jn0 = j0[0] * ux + j0[1] * uy + j0[2] * uz
-        jn1 = j1[0] * ux + j1[1] * uy + j1[2] * uz
-        r2 = splats["radius"] * splats["radius"]
-        m00 = r2 * (a00 - jn0 * jn0)
-        m01 = r2 * (a01 - jn0 * jn1)
-        m11 = r2 * (a11 - jn1 * jn1)
+        if cfg.ellipse == "ewa":
+            m00, m01, m11 = _disc_covariance(splats, j0, j1)
+        else:
+            m00, m01, m11 = _gaussian_covariance(splats, j0, j1)
         # closed-form 2x2 symmetric eigendecomposition
         half_tr = 0.5 * (m00 + m11)
         half_df = 0.5 * (m00 - m11)
@@ -173,7 +206,9 @@ def shade_planes(
         minor = sqrt_rn(lam_lo)
         # minor-axis direction = eigenvector of lam_lo: (m01, lam_lo - m00)
         angle = torch.atan2(lam_lo - m00, m01)
-        major_c = minimum(major, cfg.r_cap)
+        # a Gaussian's major standard deviation is sigma * radius
+        major_c = minimum(div(major, cfg.sigma) if cfg.ellipse == "cov3d" else major,
+                          cfg.r_cap)
         ell_radius = torch.where(proj["valid"], major_c, 0.0)
         ratio = clip(minor / maximum(major, 1e-8), 0.05, 1.0)
     elif cfg.oriented:
@@ -281,6 +316,20 @@ def splat_screen_words(
 
 
 splat_screen_words.launches = 0
+
+
+def count_cov3d(words: Dict[str, torch.Tensor], cfg: RenderConfig) -> None:
+    """The counters of one "cov3d" projection's words, for a caller that
+    checked `enabled()`: `cov3d_splats` its N Gaussians (a host number),
+    `cov3d_live` its records with a radius (a culled record has 0), and
+    `cov3d_capped` those whose radius sits at r_cap on the record's grid:
+    the Gaussians whose major standard deviation (after the low-pass) the
+    record format clamps at sigma * r_cap.  Device sums: nothing is read
+    back."""
+    r_fx = words["w_ro"] & 0xFFFF
+    count("cov3d_splats", torch.tensor(r_fx.shape[0]))
+    count("cov3d_live", (r_fx > 0).sum())
+    count("cov3d_capped", (r_fx >= round(cfg.r_cap * cfg.pos_scale)).sum())
 
 
 def splat_screen_words_plain(

@@ -8,16 +8,22 @@ Counterpart of `splat_renderer_tpu/utils/ply.py`, the same numpy host code
 bridge that lets pre-trained Gaussian-splat scenes flow into the engine, and
 fitted scenes flow back out to every standard 3DGS viewer.
 
-Mapping to our surface-disc model (points/properties.py planes):
+Mapping to the splat planes (points/properties.py):
 
-- ``load_ply``: a 3DGS Gaussian is a full 3D covariance R diag(s)^2 R^T; our
-  splats are oriented discs.  The disc normal is the axis of SMALLEST scale
-  (the flattest direction); the disc radius is the geometric mean of the two
-  in-plane scales.  Isotropic-ish gaussians degrade gracefully (any axis is
-  as good as another).  Color = 0.5 + C0 * f_dc (the SH DC term; higher
-  bands are view-dependent and dropped), opacity = sigmoid(logit).
-- ``save_ply``: the inverse — scales (r, r, r*PLY_THIN), a quaternion
-  rotating +z onto the normal, f_dc = (color - 0.5) / C0, logit(opacity).
+- ``load_ply``: a 3DGS Gaussian is a full 3D covariance R diag(s)^2 R^T.  By
+  default it becomes an oriented disc: the disc normal is the axis of
+  SMALLEST scale (the flattest direction); the disc radius is the geometric
+  mean of the two in-plane scales.  That loses the in-plane anisotropy and
+  the thickness.  ``covariance=True`` keeps the Gaussian itself: the seven
+  planes ``sx sy sz`` (exp of the file's log-scales) and ``qw qx qy qz``
+  (the file's rotation as stored) beside the eleven, with radius 2 max(s),
+  for ``RenderConfig(oriented=True, ellipse="cov3d")``.  Either way:
+  color = 0.5 + C0 * f_dc (the SH DC term; higher bands are view-dependent
+  and come with ``with_sh``), opacity = sigmoid(logit).
+- ``save_ply``: the inverse — a set with the seven planes writes them back
+  (log-scales, the rotation as held); a disc set writes scales (r, r,
+  r*PLY_THIN) and a quaternion rotating +z onto the normal; f_dc =
+  (color - 0.5) / C0, logit(opacity).
 
 Host-side numpy only; `load_ply` puts the (N,) planes on the device the
 caller names at the very end.
@@ -31,7 +37,7 @@ import numpy as np
 import torch
 
 from .._torch_util import to_numpy
-from ..points.properties import Splats
+from ..points.properties import COV3D_PLANES, Splats
 
 SH_C0 = 0.28209479177387814  # Y_0^0, the 3DGS color basis constant
 PLY_THIN = 0.1  # exported disc thickness as a fraction of its radius
@@ -104,9 +110,11 @@ def _read_header(f) -> tuple:
     raise ValueError("PLY file has no vertex element")
 
 
-def load_ply(path: str, with_sh: bool = False, *, device):
+def load_ply(path: str, with_sh: bool = False, covariance: bool = False, *, device):
     """Load a 3DGS ``.ply`` into the splat plane dict, as float32 tensors
-    on `device`.
+    on `device`.  ``covariance=True`` adds the Gaussians' own scales and
+    rotations (`COV3D_PLANES`) and sets radius to 2 max(s); the default
+    maps each Gaussian to a disc (see the module's docstring).
 
     Unknown extra properties are skipped; files missing the gaussian fields
     fall back sensibly (no scales -> unit radius, no rotation -> +z normals,
@@ -180,6 +188,13 @@ def load_ply(path: str, with_sh: bool = False, *, device):
         "nx": _t(normal[:, 0]), "ny": _t(normal[:, 1]),
         "nz": _t(normal[:, 2]),
     }
+    if covariance:
+        splats["radius"] = _t(2.0 * s.max(axis=1))
+        rot = (np.stack([rec[f"rot_{k}"] for k in range(4)], 1).astype(np.float32)
+               if {"rot_0", "rot_1", "rot_2", "rot_3"} <= names
+               else np.tile(np.float32([1.0, 0.0, 0.0, 0.0]), (n, 1)))
+        for k, name in enumerate(COV3D_PLANES):
+            splats[name] = _t(s[:, k] if k < 3 else rot[:, k - 3])
     if not with_sh:
         return splats
     # f_rest_* higher SH bands, channel-major (m red rows, m green, m blue);
@@ -210,9 +225,11 @@ def load_ply(path: str, with_sh: bool = False, *, device):
 def save_ply(path: str, splats: Splats, sh=None) -> None:
     """Write the splat set as a standard 3DGS ``.ply`` (binary LE).
 
-    Discs become thin gaussians: in-plane scales = radius, normal-axis
-    scale = radius * PLY_THIN, rotation = the quaternion taking +z to the
-    normal.  Any 3DGS viewer renders the result directly.
+    A set with `COV3D_PLANES` (``load_ply(covariance=True)``,
+    `points.gaussian_splats`) writes its scales (as log-scales) and its
+    rotation back.  Discs become thin gaussians: in-plane scales = radius,
+    normal-axis scale = radius * PLY_THIN, rotation = the quaternion taking
+    +z to the normal.  Any 3DGS viewer renders the result directly.
 
     ``sh`` (the ``{"r"|"g"|"b": (n_rest, N)}`` pytree from
     ``load_ply(with_sh=True)`` / ``render.sh``) adds the standard
@@ -226,8 +243,9 @@ def save_ply(path: str, splats: Splats, sh=None) -> None:
     """
     live = to_numpy(splats["radius"]) > 0.0
     cols: Dict[str, np.ndarray] = {}
+    gaussians = all(k in splats for k in COV3D_PLANES)
     for k in ("px", "py", "pz", "nx", "ny", "nz", "radius", "opacity",
-              "cr", "cg", "cb"):
+              "cr", "cg", "cb") + (COV3D_PLANES if gaussians else ()):
         cols[k] = to_numpy(splats[k]).astype(np.float32)[live]
     export_props = list(_EXPORT_PROPS)
     if sh is not None:
@@ -260,6 +278,10 @@ def save_ply(path: str, splats: Splats, sh=None) -> None:
     for name, v in (("rot_0", w), ("rot_1", qx), ("rot_2", qy),
                     ("rot_3", qz)):
         cols[name] = (v / np.maximum(norm, 1e-12)).astype(np.float32)
+    if gaussians:
+        for k, name in enumerate(COV3D_PLANES):
+            cols[f"scale_{k}" if k < 3 else f"rot_{k - 3}"] = (
+                np.log(cols[name]) if k < 3 else cols[name])
 
     header = ["ply", "format binary_little_endian 1.0",
               f"element vertex {n}"]

@@ -20,6 +20,7 @@ from splat_renderer_tpu_torch._torch_util import sqrt_rn
 from splat_renderer_tpu_torch.camera import camera_tensors
 from splat_renderer_tpu_torch.convert import splats_from_numpy
 from splat_renderer_tpu_torch.ops.project_words import (
+    ALL_PLANES,
     PLANES,
     dilates,
     ellipse_model,
@@ -44,6 +45,10 @@ PROFILES = {
     "aa_ewa": lambda: tpt.RenderConfig(width=W, height=H, oriented=True, ellipse="ewa",
                                        aa_dilation=0.3, sigma=0.6),
     "surface": lambda: tpt.surface_render_config(W, H),
+    "cov3d": lambda: tpt.RenderConfig(width=W, height=H, oriented=True, ellipse="cov3d",
+                                      tiles_per_splat_cap=8),
+    "aa_cov3d": lambda: tpt.RenderConfig(width=W, height=H, oriented=True, ellipse="cov3d",
+                                         aa_dilation=0.3, tiles_per_splat_cap=8),
 }
 
 
@@ -54,11 +59,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _planes(n, seed=0, edge=False, view_proj=None):
+def _planes(n, seed=0, edge=False, view_proj=None, cov=False):
     """Numpy splat planes around the origin with unit normals.  edge: half
     of them moved along the camera's w gradient onto w in {0, +-1e-9, 5e-8,
     +-1e-7, 1e-6, 2e-6, -0.5, -3} (on the eye plane, near it, behind the
-    camera) and a quarter scaled 40x (far off screen)."""
+    camera) and a quarter scaled 40x (far off screen).  cov: a 3D
+    Gaussian's planes as well (`COV3D_PLANES`): scales up to half the
+    radius, one of them flat (some exactly 0), and quaternions of any
+    length (some of length 0)."""
     rng = np.random.default_rng(seed)
     pos = rng.uniform(-1, 1, (n, 3))
     pos[: n // 50] *= 6.0
@@ -79,7 +87,19 @@ def _planes(n, seed=0, edge=False, view_proj=None):
         "opacity": rng.uniform(0.2, 1.0, n),
         "nx": nrm[:, 0], "ny": nrm[:, 1], "nz": nrm[:, 2],
     }
+    if cov:
+        s = planes["radius"][:, None] * rng.uniform(0.05, 0.5, (n, 3))
+        s[np.arange(n), rng.integers(0, 3, n)] *= rng.choice([0.0, 0.1], n)
+        q = rng.normal(size=(n, 4)) * rng.uniform(0.1, 3.0, (n, 1))
+        q[: n // 100] = 0.0
+        planes.update(sx=s[:, 0], sy=s[:, 1], sz=s[:, 2], qw=q[:, 0], qx=q[:, 1], qy=q[:, 2],
+                      qz=q[:, 3])
     return {k: v.astype(np.float32) for k, v in planes.items()}
+
+
+def _profile_planes(cfg, n, **kw):
+    """`_planes` with the covariance planes where cfg's model reads them."""
+    return _planes(n, cov=ellipse_model(cfg) == "cov3d", **kw)
 
 
 def _columns(splats):
@@ -134,7 +154,7 @@ def test_cpu_takes_the_plain_path(profile):
     """On the CPU `splat_screen_words` is the plain path bit for bit and
     launches nothing."""
     cfg = PROFILES[profile]()
-    spl = _columns(splats_from_numpy(_planes(1500, seed=1), "cpu"))
+    spl = _columns(splats_from_numpy(_profile_planes(cfg, 1500, seed=1), "cpu"))
     cam = _camera("cpu")
     before = (project_words.launches, splat_screen_words.launches)
     got = splat_screen_words(spl, cam["view_proj"], cam["cam_pos"], cfg)
@@ -158,21 +178,21 @@ def _branch_config(cfg, model, dilate):
     """cfg with its ellipse and dilation settings replaced by the ones that
     name (model, dilate) outright."""
     return cfg.replace(
-        oriented=model != "isotropic", ellipse="ewa" if model == "ewa" else "foreshorten",
+        oriented=model != "isotropic", ellipse=model if model in ("ewa", "cov3d") else "foreshorten",
         aa_dilation=(cfg.aa_dilation or 0.3) if dilate else 0.0,
         opaque=cfg.opaque and not dilate,
     )
 
 
-@pytest.mark.parametrize("ellipse", ["foreshorten", "ewa", "elliptic"])
+@pytest.mark.parametrize("ellipse", ["foreshorten", "ewa", "elliptic", "cov3d"])
 @pytest.mark.parametrize("oriented", [False, True])
 def test_kernel_branch_is_the_one_shade_planes_takes(ellipse, oriented):
-    """For every ellipse value (any string other than "ewa" is the
-    foreshortened model), oriented or not, with and without the dilation
-    and opaque: of the six branches, `shade_planes` gives the config's
-    planes on exactly the one `ellipse_model`/`dilates` choose for the
-    kernel."""
-    spl = splats_from_numpy(_planes(256, seed=5), "cpu")
+    """For every ellipse value (any string other than "ewa" and "cov3d" is
+    the foreshortened model), oriented or not, with and without the
+    dilation and opaque: of the eight branches, `shade_planes` gives the
+    config's planes on exactly the one `ellipse_model`/`dilates` choose for
+    the kernel."""
+    spl = splats_from_numpy(_planes(256, seed=5, cov=True), "cpu")
     cam = _camera("cpu")
     bits = lambda c: {k: v.view(torch.int32) for k, v in c.items()}  # noqa: E731
     shade = lambda cfg: bits(shade_planes(spl, cam["view_proj"], cam["cam_pos"], cfg))  # noqa: E731
@@ -182,7 +202,7 @@ def test_kernel_branch_is_the_one_shade_planes_takes(ellipse, oriented):
         want = shade(cfg)
         same = [
             (model, dilate)
-            for model in ("isotropic", "foreshorten", "ewa") for dilate in (False, True)
+            for model in ("isotropic", "foreshorten", "ewa", "cov3d") for dilate in (False, True)
             if all(torch.equal(want[k], v)
                    for k, v in shade(_branch_config(cfg, model, dilate)).items())
         ]
@@ -197,6 +217,8 @@ def test_every_config_maps_to_a_kernel_branch():
     assert ellipse_model(rc(oriented=True)) == "foreshorten"
     assert ellipse_model(rc(oriented=True, ellipse="ewa")) == "ewa"
     assert ellipse_model(rc(ellipse="ewa")) == "isotropic"
+    assert ellipse_model(rc(oriented=True, ellipse="cov3d")) == "cov3d"
+    assert ellipse_model(rc(ellipse="cov3d")) == "isotropic"
     assert dilates(rc(aa_dilation=0.3)) and not dilates(rc(aa_dilation=0.3, opaque=True))
     surface = tpt.surface_render_config()
     assert (ellipse_model(surface), dilates(surface)) == ("foreshorten", False)
@@ -222,6 +244,10 @@ def test_wrapper_rejects_what_it_cannot_take():
     with pytest.raises(ValueError, match="no projector kernel"):
         project_words(spl, vp, cp, cfg)
     assert set(PLANES) == set(spl)
+    # the covariance model needs its seven planes beside the eleven
+    with pytest.raises(ValueError, match="needs the splat planes"):
+        project_words(spl, vp, cp, PROFILES["cov3d"]())
+    assert set(ALL_PLANES) - set(PLANES) == {"sx", "sy", "sz", "qw", "qx", "qy", "qz"}
 
 
 # ---- on the card ----
@@ -236,7 +262,8 @@ def test_kernel_bit_equal_to_plain(cuda, profile):
     cam = _camera(cuda)
     vp, cp = cam["view_proj"], cam["cam_pos"]
     for edge in (False, True):
-        spl = splats_from_numpy(_planes(20_000, seed=3, edge=edge, view_proj=vp.cpu()), cuda)
+        spl = splats_from_numpy(
+            _profile_planes(cfg, 20_000, seed=3, edge=edge, view_proj=vp.cpu()), cuda)
         if edge:
             spl = _columns(spl)
         want = splat_screen_words_plain(spl, vp, cp, cfg)
@@ -262,7 +289,8 @@ def test_kernel_bit_equal_to_plain_on_the_cpu(cuda, profile):
     cam = _camera(cuda)
     vp, cp = cam["view_proj"], cam["cam_pos"]
     for edge in (False, True):
-        spl = splats_from_numpy(_planes(20_000, seed=6, edge=edge, view_proj=vp.cpu()), cuda)
+        spl = splats_from_numpy(
+            _profile_planes(cfg, 20_000, seed=6, edge=edge, view_proj=vp.cpu()), cuda)
         if edge:
             spl = _columns(spl)
         got = splat_screen_words(spl, vp, cp, cfg)

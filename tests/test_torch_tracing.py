@@ -1,9 +1,11 @@
-"""The port's recorder (`utils/profiling.py`) on the CPU, at a small frame
-and a 96x64 fit: off, a frame or a fit step records nothing and gives the
-outputs it gives on; on, the spans of a frame and of a step form the
-layer tree, a parent's time covers its children's, the pair counter sums
-the binnings' pair counts, `recording()` nests, and `trace()` writes the
-spans into its Chrome trace."""
+"""The port's recorder (`utils/profiling.py`) on the CPU, at a small frame,
+a 96x64 fit and a batch of views of 3D Gaussians: off, a frame, a fit step
+or a batch records nothing and gives the outputs it gives on; on, the
+spans of a frame, a step and a batch form the layer tree, a parent's time
+covers its children's, the pair counter sums the binnings' pair counts,
+the `cov3d_splats` counter the Gaussians projected and `cov3d_capped`
+those at the radius cap, `recording()` nests,
+and `trace()` writes the spans into its Chrome trace."""
 
 import json
 import os
@@ -12,10 +14,13 @@ import pytest
 import torch
 
 import splat_renderer_tpu_torch as tpt
-from splat_renderer_tpu_torch.camera import camera_tensors
+from splat_renderer_tpu_torch.camera import camera_tensors, orbit_ring
 from splat_renderer_tpu_torch.fit import fit_splats
+from splat_renderer_tpu_torch.points import gaussian_splats
 from splat_renderer_tpu_torch.render import binning
+from splat_renderer_tpu_torch.render.multiview import render_views, render_views_gbuffer
 from splat_renderer_tpu_torch.render.pipeline import Engine, SplatEngine, demo_scene
+from splat_renderer_tpu_torch.render.projector import shade_planes
 from splat_renderer_tpu_torch.utils import profiling
 
 W, H = 96, 64
@@ -23,6 +28,8 @@ MODEL = {"model/seed", "model/descent", "model/curvature", "model/derive"}
 CHAIN = {("project", "frame"), ("bin", "frame"), ("blend", "frame"), ("image", "frame")}
 SDF_TREE = ({("frame", None), ("model", "frame")} | {(m, "model") for m in MODEL} | CHAIN)
 SH_TREE = {("frame", None), ("sh", "frame")} | CHAIN
+VIEWS_TREE = {("views", None)} | {(name, "views") for name in ("sh", "project", "bin", "blend",
+                                                               "image")}
 STEP_TREE = {("fit/step", None), ("sh", "fit/step"), ("fit/render", "fit/step"),
              ("image", "fit/render"), ("fit/loss", "fit/step"), ("fit/backward", "fit/step"),
              ("fit/adam", "fit/step")}
@@ -89,10 +96,34 @@ def _fit_two_steps():
     return run
 
 
+def _gaussians(n=400, seed=3):
+    """The static scene's splats as anisotropic 3D Gaussians, and its SH."""
+    splats, sh = _static_scene(n, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    pos = torch.stack([splats["px"], splats["py"], splats["pz"]], 1)
+    scales = splats["radius"][:, None] * (0.1 + 0.4 * torch.rand((n, 3), generator=g))
+    col = torch.stack([splats["cr"], splats["cg"], splats["cb"]], 1)
+    return gaussian_splats(pos, scales, torch.randn((n, 4), generator=g), col,
+                           splats["opacity"]), sh
+
+
+VIEWS_CFG = tpt.RenderConfig(width=W, height=H, oriented=True, ellipse="cov3d", aa_dilation=0.3,
+                             tiles_per_splat_cap=8)
+
+
+def _views_batch():
+    """A batch of 3 views of 3D Gaussians, SH lit, as uint8 rows."""
+    splats, sh = _gaussians()
+    cams = camera_tensors(orbit_ring(3, aspect=W / H), "cpu")
+    return lambda: render_views(splats, cams, VIEWS_CFG, flat=True, as_uint8=True, sh=sh,
+                                device="cpu")
+
+
 # what is run: (a maker of the call, its span tree as (name, parent), its root)
 RUNS = {"sdf_frame": (_frame_sdf, SDF_TREE, "frame"),
         "static_frame": (_frame_static, SH_TREE, "frame"),
-        "fit_steps": (_fit_two_steps, STEP_TREE, "fit/step")}
+        "fit_steps": (_fit_two_steps, STEP_TREE, "fit/step"),
+        "views_batch": (_views_batch, VIEWS_TREE, "views")}
 
 
 @pytest.mark.parametrize("run", sorted(RUNS))
@@ -107,7 +138,7 @@ def test_off_records_nothing_and_matches_on(run, monkeypatch):
         m.setattr(profiling, "record_function", refuse)
         off = fn()
     assert profiling.report() == {} and profiling.intervals() == []
-    assert profiling.counter("pairs") == 0.0
+    assert profiling.counter("pairs") == 0.0 and profiling.counter("cov3d_splats") == 0.0
     with profiling.recording():
         on = fn()
     assert profiling.report() == {}  # the recording was its own
@@ -167,6 +198,59 @@ def test_pairs_sums_the_binnings(run, monkeypatch):
     assert made and rec.counter("pairs") == sum(made)
     assert rec.counter("pairs", within=root) == sum(made)
     assert rec.counter("pairs", within="other") == 0
+
+
+def test_cov3d_splats_counts_the_gaussians_projected():
+    """`cov3d_splats` adds N for each "cov3d" projection, under the root
+    span open at the call, and nothing for the other models."""
+    splats, sh = _gaussians(n=300)
+    cams = camera_tensors(orbit_ring(3, aspect=W / H), "cpu")
+    with profiling.recording() as rec:
+        render_views(splats, cams, VIEWS_CFG, sh=sh, device="cpu")
+        render_views(splats, cams, VIEWS_CFG.replace(ellipse="ewa"), device="cpu")
+    assert rec.counter("cov3d_splats") == 3 * 300
+    assert rec.counter("cov3d_splats", within="views") == 3 * 300
+    assert rec.report()["views"]["calls"] == 2
+
+
+def test_cov3d_capped_counts_the_records_at_the_cap():
+    """`cov3d_live` adds a projection's records with a radius and
+    `cov3d_capped` those whose radius sits at r_cap: at least every
+    Gaussian whose unclamped radius (the same model under a cap that never
+    binds) reaches r_cap, at most those within the grid's half step below
+    it.  Half of the Gaussians are made large, so some are capped and
+    some are not."""
+    splats, sh = _gaussians(n=300)
+    big = torch.arange(300) % 2 == 0
+    for k in ("sx", "sy", "sz", "radius"):
+        splats[k] = torch.where(big, 6.0 * splats[k], splats[k])
+    cams = camera_tensors(orbit_ring(3, aspect=W / H), "cpu")
+    with profiling.recording() as rec:
+        render_views(splats, cams, VIEWS_CFG, sh=sh, device="cpu")
+    free = VIEWS_CFG.replace(tiles_per_splat_cap=4096)
+    r_cap, half = VIEWS_CFG.r_cap, 0.5 / VIEWS_CFG.pos_scale
+    live = at_least = at_most = 0
+    for v in range(3):
+        vp, pos = cams["view_proj"][v], cams["cam_pos"][v]
+        live += int((shade_planes(splats, vp, pos, VIEWS_CFG)["radius"] * VIEWS_CFG.pos_scale
+                     >= 0.5).sum())
+        r = shade_planes(splats, vp, pos, free)["radius"]
+        at_least += int((r >= r_cap).sum())
+        at_most += int((r >= r_cap - half).sum())
+    assert rec.counter("cov3d_live", within="views") == live
+    assert 0 < at_least <= rec.counter("cov3d_capped", within="views") <= at_most < live
+
+
+def test_the_gbuffer_views_are_a_views_span():
+    """`render_views_gbuffer` is one `views` span over its views' G-buffers."""
+    splats, sh = _gaussians(n=300)
+    cams = camera_tensors(orbit_ring(2, aspect=W / H), "cpu")
+    with profiling.recording() as rec:
+        out = render_views_gbuffer(splats, cams, VIEWS_CFG, sh=sh, device="cpu")
+    assert out["rgb"].shape == (2, H, W, 3)
+    assert {(n, p) for n, p, _, _ in rec.intervals() if p is None} == {("views", None)}
+    assert rec.report()["project"]["calls"] == 2
+    assert rec.counter("cov3d_splats", within="views") == 2 * 300
 
 
 def test_recording_nests_and_restores():

@@ -102,12 +102,20 @@ static-scene serving and datagen paths, and checks the images.  Phases:
      path, its device time (the profiler's, L2 written over before each
      launch, and warm) and its call time beside its bound (bytes over HBM
      bandwidth) and the plain path's call time
+ 18. the binner's kernels (csrc/bin_words.cu, B1) on the demo scene's 1M
+     splats at 1920x1080 on 16x16 tiles, cap 4, and on one view of
+     `gs3d_aniso_2m_1080p`'s 2M Gaussians (cap 8, oriented): offsets,
+     counts, the live pairs and the record planes bit-equal to the plain
+     path; the device time of the call's kernels (the profiler's, L2
+     written over before each call), the call's time and the
+     plain path's, beside the bytes of the design's passes over HBM
+     bandwidth
 
 Beside each blend kernel's time at its stream it prints the share of the
 (record, warp) pairs that the kernels' warp-level culling removes there
 (computed with the culling test's plain mirror).
 
-It prints one JSON line describing the seven kernels (each with its launches
+It prints one JSON line describing the eight kernels (each with its launches
 on its path, its time, the twin's time and the least time the card could
 take for the same work),
 then, as its last line,
@@ -1920,6 +1928,121 @@ def phase17_projector(dev, card: str, headline_cfg, headline_cam, n: int = 1_000
     return out["isotropic"]
 
 
+def bin_bound_bytes(n: int, cfg, with_depth: bool = False) -> int:
+    """The bytes `bin_packed_words` has to move, each once: the four int64
+    words read, the int32 record planes written (three, four with the
+    depth plane), pair_rank and pair_tile written over all N*cap slots,
+    offsets and counts."""
+    return (n * (4 * 8 + 4 * (3 + with_depth)) + n * cfg.tiles_per_splat_cap * 8
+            + (2 * cfg.num_tiles + 1) * 4)
+
+
+def bin_design_bytes(n: int, pairs: int, cfg) -> int:
+    """The bytes B1's own passes move at least: `bin_bound_bytes` and the
+    live pairs written (int64 key, int32 value) and sorted (each 8-bit
+    radix pass reads and writes both)."""
+    passes = -(-(32 + cfg.num_tiles.bit_length()) // 8)
+    return bin_bound_bytes(n, cfg) + pairs * 12 * (1 + 2 * passes)
+
+
+def phase18_binner(dev, card: str, headline_cfg, headline_cam, reps: int = 10) -> dict:
+    """The binner's kernels (B1) at three shapes: the demo scene's 1M
+    splats at headline_cfg (1920x1080, 32x16 tiles, cap 4, isotropic) from
+    headline_cam, as phase 3's Engine frames bin them; the same scene on
+    16x16 tiles; and view 0 of `gs3d_aniso_2m_1080p`'s 2M Gaussians (the
+    benchmark's scene from seed 7; cap 8, oriented `cov3d`).  Each:
+    `bin_packed_words`' outputs bit-equal to `bin_packed_words_plain` over
+    the live pairs, the tail the sentinel; the device time of the call's
+    kernels (the profiler's sum over its footprint, scan, emit, sort,
+    ranges and counts kernels, with the 50 MB L2 written over before each
+    call), the call's time (CUDA events over `reps` calls back to back:
+    the host's issuing and the read-back of P count) and the plain
+    path's, beside two bounds over HBM bandwidth: the function's bytes
+    (`bin_bound_bytes`) and those of the design's passes
+    (`bin_design_bytes`, the sort's included).  Returns the headline
+    shape's numbers, bound by the function's bytes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import splat_renderer_tpu_torch as spt
+    from gpubench.bench import cell_parts
+    from gpubench.drivers.views import gaussian_scene
+    from splat_renderer_tpu_torch.camera import camera_tensors
+    from splat_renderer_tpu_torch.ops.bin_words import bin_words
+    from splat_renderer_tpu_torch.render.binning import bin_packed_words, bin_packed_words_plain
+    from splat_renderer_tpu_torch.render.pipeline import demo_scene, model_points
+    from splat_renderer_tpu_torch.render.projector import splat_screen_words
+
+    demo_cfg = headline_cfg.replace(tile_size=16, tile_height=16)
+    scene = demo_scene()
+    demo = lambda cfg: model_points(  # noqa: E731
+        scene, scene.params(dev), torch.Generator(device=dev).manual_seed(18), 1_000_000,
+        spt.PointConfig(), cfg, device=dev)
+    shapes = {"demo_1m_32x16_cap4": (demo(headline_cfg), headline_cfg, headline_cam),
+              "demo_1m_16x16_cap4": (demo(demo_cfg), demo_cfg, None)}
+    with open("BENCHMARK.json") as f:
+        gs3d = cell_parts(json.load(f), "views8_2m_1080p")[0]
+    shapes["gs3d_2m_cap8"] = (gaussian_scene(gs3d, 7, dev)[0], spt.RenderConfig(**gs3d["render"]),
+                              None)
+    view0 = camera_tensors(spt.Camera(azimuth=0.0, elevation=0.4, distance=3.0,
+                                      aspect=1920 / 1080).arrays(), dev)
+    out = {}
+    for name, (splats, cfg, cam) in shapes.items():
+        cam = view0 if cam is None else cam
+        w = splat_screen_words(splats, cam["view_proj"], cam["cam_pos"], cfg)
+        words = [w[k] for k in ("dk", "w_pos", "w_ro", "w_rgb")]
+        del w
+        n = words[0].shape[0]
+        call = lambda: bin_packed_words(*words, cfg)  # noqa: E731
+        plain = lambda: bin_packed_words_plain(*words, cfg)  # noqa: E731
+        before = bin_words.launches
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        check(bin_words.launches == before + 1, f"{name}: not one binner call")
+        p = int(want["offsets"][-1])
+        differ = {k: int((got[k][:p] != want[k][:p]).sum()) if k.startswith("pair_")
+                  else int((got[k] != want[k]).sum()) for k in want}
+        check(not any(differ.values()), f"{name}: kernel vs plain path differ {differ}")
+        check(bool((got["pair_tile"][p:] == cfg.num_tiles).all()), f"{name}: tail not sentinel")
+        del got, want
+        call_ms = elapsed_ms(call, reps)
+        plain_ms = elapsed_ms(plain, 3)
+        call_ms_2 = elapsed_ms(call, reps)
+        flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+        ops, tries = [], 0
+        # late in this long process a profiling session has come back
+        # empty: try the session again, up to three times
+        while not ops and tries < 3:
+            tries += 1
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    flush.fill_(0)
+                    call()
+                torch.cuda.synchronize()
+            # every device operation of the calls but the flush's fill
+            ops = [e for e in prof.key_averages() if e.self_device_time_total > 0
+                   and "fill" not in e.key.lower()]
+        check(bool(ops), f"{name}: {tries} profiling sessions saw no binner kernel")
+        del flush
+        ms = sum(e.self_device_time_total for e in ops) / 1e3 / reps
+        ops.sort(key=lambda e: -e.self_device_time_total)
+        top = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3 / reps:.4f}"
+                        for e in ops[:6])
+        n_bytes, design_bytes = bin_bound_bytes(n, cfg), bin_design_bytes(n, p, cfg)
+        bnd = (n_bytes / HBM_BYTES_S * 1e3, "bytes")
+        design_ms = design_bytes / HBM_BYTES_S * 1e3
+        log(f"phase 18: bin_words {name}: {n} records, {p} live pairs of {n * cfg.tiles_per_splat_cap} "
+            f"slots, {cfg.num_tiles} tiles of {cfg.tile_w}x{cfg.tile_h}: outputs bit-equal to the "
+            f"plain path; kernels {ms:.4f} ms (device, profiler, L2 written over before each call; "
+            f"session {tries}; by operation: {top}), call {call_ms:.4f} / {call_ms_2:.4f} ms (CUDA "
+            f"events, {reps} calls), plain path {plain_ms:.3f} ms; bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}: {n_bytes / 1e6:.0f} MB the function moves), {100 * bnd[0] / ms:.1f}% of "
+            f"it; the design's passes {design_ms:.4f} ms ({design_bytes / 1e6:.0f} MB, the sort's "
+            f"included), {100 * design_ms / ms:.1f}% of it; {card}")
+        out[name] = dict(ms=ms, call_ms=min(call_ms, call_ms_2), plain_ms=plain_ms, bound=bnd)
+    return out["demo_1m_32x16_cap4"]
+
+
 def main() -> None:
     import torch
 
@@ -1941,6 +2064,7 @@ def main() -> None:
         Engine, animate_demo, demo_scene, model_points, render_splats,
     )
     from splat_renderer_tpu_torch.render.packing import U32_MASK, unpack_words
+    from splat_renderer_tpu_torch.ops.bin_words import bin_words
     from splat_renderer_tpu_torch.ops.project_words import project_words
     from splat_renderer_tpu_torch.render.projector import splat_screen_words
 
@@ -1956,7 +2080,7 @@ def main() -> None:
     log(smi)
     card = smi  # name and power limit, beside every time
     t0 = time.perf_counter()
-    sources = ("tile_blend", "tile_blend_diff", "probe_rate", "project_words")
+    sources = ("tile_blend", "tile_blend_diff", "probe_rate", "project_words", "bin_words")
     build.build_all(sources)  # one nvcc per source, in parallel
     for name in sources:
         build.load_library(name)
@@ -2065,15 +2189,18 @@ def main() -> None:
 
     reset_launches()
     # the projector kernel's launches on the main path: these 5 frames'
-    proj0 = project_words.launches
+    proj0, bin0 = project_words.launches, bin_words.launches
     frame_ms, shares = run_frames(eng, 5, 0.0, 0)
     main_launches = blend_tiles.launches_by_kernel["tile_blend"]
     proj_launches = project_words.launches - proj0
+    bin_launches = bin_words.launches - bin0
     check(main_launches == blend_tiles.launches, "Engine frames launched another kernel")
     check(main_launches >= 5, f"tile_blend launched {main_launches} times in 5 frames")
     check(proj_launches == 5, f"the projector kernel launched {proj_launches} times in 5 frames")
+    check(bin_launches == 5, f"the binner's kernels ran {bin_launches} times in 5 frames")
     log(f"phase 3: Engine 1M @1920x1080 32x16 cap 4, 5 frames: tile_blend launches "
-        f"{main_launches}, project_words launches {proj_launches}; coverage {min(shares):.3f}..{max(shares):.3f} "
+        f"{main_launches}, project_words launches {proj_launches}, bin_words calls "
+        f"{bin_launches}; coverage {min(shares):.3f}..{max(shares):.3f} "
         f"(> {COVERAGE_FLOOR}); frame ms (CUDA events) "
         + " ".join(f"{t:.2f}" for t in frame_ms))
 
@@ -2214,6 +2341,9 @@ def main() -> None:
 
     # ---- phase 17: the projector kernel at the headline shape ----
     p17 = phase17_projector(dev, card, rcfg, cam)
+
+    # ---- phase 18: the binner's kernels at three shapes, the headline's first ----
+    p18 = phase18_binner(dev, card, rcfg, cam)
     log(f"phases 13-16: {t14 - t13:.1f} / {t15 - t14:.1f} / {t16 - t15:.1f} / "
         f"{time.perf_counter() - t16:.1f} s (host clock); the script so far "
         f"{time.perf_counter() - t_start:.1f} s; {card}")
@@ -2265,6 +2395,10 @@ def main() -> None:
         entry("project_words", "splat_renderer_tpu_torch/csrc/project_words.cu", "none",
               proj_launches, 0.0, p17["ms"], p17["plain_ms"], p17["bound"],
               call_ms=p17["call_ms"]),
+        # the same: bit-equal over the live pairs; launches: one call a frame
+        entry("bin_words", "splat_renderer_tpu_torch/csrc/bin_words.cu", "none",
+              bin_launches, 0.0, p18["ms"], p18["plain_ms"], p18["bound"],
+              call_ms=p18["call_ms"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -14,13 +14,24 @@ input-index tie-break is part of the semantics.
    its 32-bit depth key, for records in input order (`bin_packed_words`):
    a stable sort of record-major pairs then breaks depth ties by input
    index, so every tile's run is in canonical order without a record sort.
-3. Per-tile counts come from `bincount`, offsets from `cumsum`.
+3. Per-tile counts come from `bincount`, offsets from `cumsum`: so on the
+   CPU, and on any device for `bin_planes_diff` and `bin_splats`.  On CUDA
+   tensors `bin_packed_words` runs the hand-written binner instead
+   (`ops/bin_words.py`, csrc/bin_words.cu): it expands only the live pairs,
+   record-major, sorts those stably by the same key, and reads the tile
+   ranges off the sorted keys, with no histogram; its offsets, counts,
+   live pairs and record planes are the plain path's bit for bit.  The
+   tail past the live pairs holds the sentinel tile on both paths; its
+   pair_rank is the sorted-out slots' records on the plain path and 0 on
+   the kernel's.
 
 The blend reads a tile's run [offsets[t], offsets[t+1]) and gathers each
-record's words by the pair's record index.
+record's words by the pair's record index; nothing reads past
+offsets[-1].
 
 Three binners share the pair stage (`_pair_stage`): `bin_packed_words` (the
-exact pipeline's quantized words, in input order), `bin_planes_diff` (the
+exact pipeline's quantized words, in input order; on the CPU, through
+`bin_packed_words_plain`), `bin_planes_diff` (the
 differentiable render's continuous f32 planes, read by
 csrc/tile_blend_diff.cu) and `bin_splats` (float records for the plain tile
 compositor); the last two sort their records first.  The TPU package's
@@ -37,6 +48,7 @@ import torch
 
 from .._torch_util import div, sqrt_rn
 from ..config import RenderConfig
+from ..ops.bin_words import bin_words
 from ..utils.profiling import count, enabled, span
 from .blend import ellipse_cos_sin
 from .packing import INV_ANGLE_SCALE, INV_RATIO_SCALE, as_int32_bits
@@ -45,6 +57,9 @@ Binned = Dict[str, torch.Tensor]
 
 # depth key of +inf (culled records): 0x7F800000 | 0x80000000
 _INF_KEY = 0xFF800000
+# one kernel-path call, for the `bin_kernel` counter (a host tensor: the
+# count adds nothing to the device's work)
+_ONE = torch.ones((), dtype=torch.int64)
 
 
 def _footprint_cols(
@@ -303,9 +318,11 @@ def bin_packed_words(
       offsets (T+1,) int32: tile t's run is pairs [offsets[t], offsets[t+1])
       counts (T,) int32: exact pairs per tile
       pair_rank (N*cap,) int32: input index of each pair's record, sorted
-          by (tile, depth key, input index); the inactive tail holds the
-          sentinel pairs
-      pair_tile (N*cap,) int32: tile of each pair (num_tiles = inactive)
+          by (tile, depth key, input index); past offsets[-1] the tail is
+          unspecified but in [0, N) (the plain path: the records of the
+          sorted-out sentinel slots; the kernel: 0)
+      pair_tile (N*cap,) int32: tile of each pair; the tail holds the
+          sentinel tile num_tiles on both paths
       rec_pos, rec_ro, rec_rgb (N,) int32: the input words (bit patterns of
           the u32 words), indexed by pair_rank
       rec_depth (N,) int32, only with_depth (the G-buffer stream): the bit
@@ -340,12 +357,40 @@ def bin_packed_words(
     rec_depth) then hold the kept records, in input order, and pair_rank
     indexes them.
 
+    Which path runs: on CUDA tensors the hand-written binner
+    (`ops/bin_words.py`, counted by `bin_words.launches` and, while tracing
+    is on, by the program counter `bin_kernel`); it reads P, the live pairs,
+    back to the host once, to size its sort.  On CPU tensors the plain path
+    `bin_packed_words_plain`, whose `bincount` reads back as well.  Both
+    count `pairs` (offsets[-1]) while tracing is on.
+
     class_caps (class-partitioned expansion) raises NotImplementedError.
     """
     if class_caps is not None:
         raise NotImplementedError("class_caps is not ported")
     if compact_to is not None and int(compact_to) < dkeys.shape[0]:
         dkeys, w_pos, w_ro, w_rgb = _compact_nearest(int(compact_to), dkeys, w_pos, w_ro, w_rgb)
+    if dkeys.device.type == "cpu":
+        return bin_packed_words_plain(dkeys, w_pos, w_ro, w_rgb, cfg, with_depth=with_depth)
+    out = bin_words(dkeys.contiguous(), w_pos.contiguous(), w_ro.contiguous(),
+                    w_rgb.contiguous(), cfg, with_depth=with_depth)
+    if enabled():
+        count("bin_kernel", _ONE)
+        count("pairs", out["offsets"][-1])
+    return out
+
+
+def bin_packed_words_plain(
+    dkeys: torch.Tensor,
+    w_pos: torch.Tensor,
+    w_ro: torch.Tensor,
+    w_rgb: torch.Tensor,
+    cfg: RenderConfig,
+    with_depth: bool = False,
+) -> Binned:
+    """`bin_packed_words`' plain path, on any device (the CPU's, and the
+    twin the kernel is held to on the card): `_pair_stage` over the
+    record-major slots, after any `compact_to`."""
     cx, cy, r, ang, ratio = _word_geometry(w_pos, w_ro, cfg)
     pairs = _pair_stage(cx, cy, r, dkeys < _INF_KEY, cfg, ang=ang, ratio=ratio, dkeys=dkeys)
     out = {

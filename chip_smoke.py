@@ -188,6 +188,14 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def k1_launches() -> int:
+    """K1's launches in the port's launch counter, all schedules and forms."""
+    from splat_renderer_tpu_torch.ops.build import launches
+    from splat_renderer_tpu_torch.ops.tile_blend import KERNELS
+
+    return sum(launches[k] for k in KERNELS)
+
+
 def elapsed_ms(fn, reps: int) -> float:
     """Mean CUDA-event time of `reps` calls of fn, after one warm-up call."""
     import torch
@@ -521,6 +529,7 @@ def phase7_training_step(dev, card: str, n: int = 200_000, size: int = 512, fit_
     import torch
 
     from splat_renderer_tpu_torch.fit import fit_splats
+    from splat_renderer_tpu_torch.ops.build import launches
     from splat_renderer_tpu_torch.ops.tile_blend_diff import (
         blend_binned_plain, bwd_chunk, diff_backward, diff_cut2, diff_forward,
     )
@@ -605,20 +614,20 @@ def phase7_training_step(dev, card: str, n: int = 200_000, size: int = 512, fit_
                     for e in top) + f"; {card}")
 
     # the trainer's main path: these launches are the ones reported
-    diff_forward.launches = diff_backward.launches = 0
+    launches.clear()
     e0.record()
     _, losses = fit_splats(spl, [cam], [target], cfg, fields=FIT8, steps=fit_steps, lr=1e-3,
                            init={k: torch.full_like(spl[k], 0.5) for k in APPEARANCE})
     e1.record()
     torch.cuda.synchronize()
-    launches = (diff_forward.launches, diff_backward.launches)
-    check(launches == (fit_steps, fit_steps), f"fit_splats launched K4/K5 {launches} times")
+    k45 = (launches["tile_blend_diff_forward"], launches["tile_blend_diff_backward"])
+    check(k45 == (fit_steps, fit_steps), f"fit_splats launched K4/K5 {k45} times")
     curve = [float(v) for v in losses]
     check(all(map(lambda v: v == v and abs(v) < float("inf"), curve)), "non-finite fit loss")
     check(curve[-1] < curve[0], f"fit loss did not fall: {curve}")
     log(f"phase 7: fit_splats {fit_steps} Adam steps over {len(FIT8)} fields: loss "
         + " ".join(f"{v:.4g}" for v in curve)
-        + f"; K4/K5 launches {launches[0]}/{launches[1]}; {e0.elapsed_time(e1) / fit_steps:.3f} "
+        + f"; K4/K5 launches {k45[0]}/{k45[1]}; {e0.elapsed_time(e1) / fit_steps:.3f} "
         f"ms/step (CUDA events); {card}")
 
     # the kernels alone at this stream, against the twin
@@ -683,7 +692,7 @@ def phase7_training_step(dev, card: str, n: int = 200_000, size: int = 512, fit_
         f"max-abs {d_fwd:.3g}, residual vs its mirror {d_res:.3g}; K5 {b_ms:.3f} ms (bound "
         f"{bb[0]:.4f} ms, {bb[1]}), two runs bit-equal, twin backward {pb_ms:.3f} ms (peak "
         f"{twin_gib:.2f} GiB), max-rel {rel:.3g}; {card}")
-    return dict(launches=launches, fwd=(k_ms, p_ms, fb, max(d_fwd, d_res)),
+    return dict(launches=k45, fwd=(k_ms, p_ms, fb, max(d_fwd, d_res)),
                 bwd=(b_ms, pb_ms, bb, d_bwd))
 
 
@@ -802,9 +811,8 @@ def phase10_static_scene(dev, card: str, workdir: str, n: int = 1_000_000):
 
     from splat_renderer_tpu_torch import Camera, PointConfig, RenderConfig
     from splat_renderer_tpu_torch.camera import camera_tensors
-    from splat_renderer_tpu_torch.ops.tile_blend import (
-        blend_tiles, blend_tiles_plain, reset_launches,
-    )
+    from splat_renderer_tpu_torch.ops.build import launches
+    from splat_renderer_tpu_torch.ops.tile_blend import blend_tiles, blend_tiles_plain
     from splat_renderer_tpu_torch.render.pipeline import SplatEngine, demo_scene, model_points
     from splat_renderer_tpu_torch.render.sh import apply_sh
     from splat_renderer_tpu_torch.utils.image import read_png
@@ -847,12 +855,12 @@ def phase10_static_scene(dev, card: str, workdir: str, n: int = 1_000_000):
         return camera_tensors(Camera(aspect=width / height, azimuth=az).arrays(), dev)
 
     # ---- the main path of this slice: the viewer's frames over HTTP ----
-    reset_launches()
+    launches.clear()
     (h1, raw1, ms1), (h2, raw2, ms2), (h3, png, ms3), (h4, half, ms4) = serve_frames(
         eng_xp, ("az=0.5&el=0.5&d=3.0&raw=1", "az=2.0&el=0.5&d=3.0&raw=1",
                  "az=2.0&el=0.3&d=2.5", "az=2.0&el=0.3&d=2.5&raw=1&half=1"), timeout=120)
     served = int(h4["x-seq"])
-    xp_launches = blend_tiles.launches_by_kernel["tile_blend_xp"]
+    xp_launches = launches["tile_blend_xp"]
     check(xp_launches >= served >= 4,
           f"tile_blend_xp launched {xp_launches} times for {served} served frames")
     check(len(raw1) == len(raw2) == width * height * 3, f"raw frame bytes {len(raw1)}")
@@ -975,9 +983,8 @@ def phase11_datagen(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_0
 
     from splat_renderer_tpu_torch import Camera, PointConfig, RenderConfig, orbit_ring
     from splat_renderer_tpu_torch.camera import camera_tensors
-    from splat_renderer_tpu_torch.ops.tile_blend import (
-        blend_tiles, blend_tiles_plain, reset_launches,
-    )
+    from splat_renderer_tpu_torch.ops.build import launches
+    from splat_renderer_tpu_torch.ops.tile_blend import blend_tiles, blend_tiles_plain
     from splat_renderer_tpu_torch.render.multiview import render_views
     from splat_renderer_tpu_torch.render.pipeline import (
         demo_scene, model_points, render_gbuffer, render_splats,
@@ -989,7 +996,7 @@ def phase11_datagen(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_0
     rcfg, cam = headline_cfg, headline_cam
     spl = model_points(scene, scene.params(dev), torch.Generator(device=dev).manual_seed(31),
                        n, pcfg, rcfg, device=dev)
-    reset_launches()
+    launches.clear()
     render_gbuffer(spl, cam, rcfg, device=dev)  # warm-up
     torch.cuda.synchronize()
     gb_ms = []
@@ -1001,7 +1008,7 @@ def phase11_datagen(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_0
         torch.cuda.synchronize()
         gb_ms.append(e0.elapsed_time(e1))
     # this path's launches: the warm-up and the 5 timed G-buffers
-    depth_launches = blend_tiles.launches_by_kernel["tile_blend_depth"]
+    depth_launches = launches["tile_blend_depth"]
     check(depth_launches == 6, f"tile_blend_depth launched {depth_launches} times in 6 G-buffers")
     h, w = rcfg.height, rcfg.width
     check(gb["rgb"].shape == (h, w, 3) and gb["depth"].shape == (h, w)
@@ -1104,6 +1111,7 @@ def phase12_rate_probe(dev, card: str):
     import torch
 
     from splat_renderer_tpu_torch.ops import probe_rate as pr
+    from splat_renderer_tpu_torch.ops.build import launches
 
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.rand(pr.PANEL, generator=g, device=dev)
@@ -1121,10 +1129,10 @@ def phase12_rate_probe(dev, card: str):
             check(bool(torch.isfinite(got).all()), f"probe {dtype}: non-finite")
             errs[dtype] = max(errs[dtype], e)
     # the probe's own entry point: these launches are the ones reported
-    pr.probe_rate.launches = 0
+    launches["probe_rate"] = 0
     rates = pr.measure(dev)
-    launches = pr.probe_rate.launches
-    check(launches >= 2, f"probe_rate launched {launches} times")
+    n_launches = launches["probe_rate"]
+    check(n_launches >= 2, f"probe_rate launched {n_launches} times")
     fmas = pr.fma_count(x.numel())
     out = {}
     for dtype, peak in (("f32", FP32_FLOP_S), ("bf16", BF16_FLOP_S)):
@@ -1155,8 +1163,8 @@ def phase12_rate_probe(dev, card: str):
             f"{peak / 2e12:.1f} Tfma/s); plain twin {plain_ms:.1f} ms; torch.addcmul loop "
             f"{lib_ms:.1f} ms; kernel vs twin max-abs {errs[dtype]:.3g} (bit-equal); {card}")
     log(f"phase 12: bf16 / f32 rate {rates['bf16']['tfma_s'] / rates['f32']['tfma_s']:.3f}; "
-        f"launches by the entry point {launches}; {card}")
-    out["launches"] = launches
+        f"launches by the entry point {n_launches}; {card}")
+    out["launches"] = n_launches
     return out
 
 
@@ -1248,10 +1256,8 @@ def phase13_front_ends(dev, card: str, workdir: str, ply_path: str, views: int =
     from splat_renderer_tpu_torch import Camera, load_dataset
     from splat_renderer_tpu_torch.apps import datagen, demo, fit_demo
     from splat_renderer_tpu_torch.camera import camera_tensors
-    from splat_renderer_tpu_torch.ops.tile_blend import (
-        blend_tiles, blend_tiles_plain, reset_launches,
-    )
-    from splat_renderer_tpu_torch.ops.tile_blend_diff import diff_backward, diff_forward
+    from splat_renderer_tpu_torch.ops.build import launches
+    from splat_renderer_tpu_torch.ops.tile_blend import blend_tiles, blend_tiles_plain
     from splat_renderer_tpu_torch.render.pipeline import demo_scene
 
     # a user starts each front end in a fresh process: release what the
@@ -1261,14 +1267,14 @@ def phase13_front_ends(dev, card: str, workdir: str, ply_path: str, views: int =
     out = os.path.join(workdir, "dataset")
     dg_argv = ["--out", out, "--views", str(views), "--steps", str(steps), "--points", str(points),
                "--width", str(size), "--height", str(size), "--gbuffer", "--device", "cuda"]
-    reset_launches()
+    launches.clear()
     t0 = time.perf_counter()
     manifest = datagen.main(dg_argv)
     torch.cuda.synchronize()
     t_datagen = time.perf_counter() - t0
-    depth_launches = blend_tiles.launches_by_kernel["tile_blend_depth"]
-    check(depth_launches == blend_tiles.launches == views * steps,
-          f"datagen launched {dict(blend_tiles.launches_by_kernel)} for {views * steps} views")
+    depth_launches = launches["tile_blend_depth"]
+    check(depth_launches == k1_launches() == views * steps,
+          f"datagen launched {dict(launches)} for {views * steps} views")
     with open(os.path.join(out, "manifest.json")) as f:
         check(json.load(f) == manifest, "manifest.json differs from what datagen returned")
     check(len(manifest["frames"]) == views * steps, "manifest frames")
@@ -1304,17 +1310,16 @@ def phase13_front_ends(dev, card: str, workdir: str, ply_path: str, views: int =
         f"depth form vs twin at eps 0, colour and alpha max-abs {d_rgba:.3g} (<= {EPS_TOL}), "
         f"depth {d_depth:.3g} of the largest depth (<= {DEPTH_TOL}); {card}")
 
-    reset_launches()
-    diff_forward.launches = diff_backward.launches = 0
+    launches.clear()
     t0 = time.perf_counter()
     fitted, losses = fit_demo.main(["--dataset", out, "--method", "kernel", "--device", "cuda"])
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
-    k4, k5 = diff_forward.launches, diff_backward.launches
+    k4, k5 = launches["tile_blend_diff_forward"], launches["tile_blend_diff_backward"]
     n_steps, n_views = int(losses.shape[0]), views * steps
     check(k4 == k5 == n_steps * n_views, f"fit_demo launched K4 {k4}, K5 {k5} times for "
           f"{n_steps} steps of {n_views} views")
-    check(blend_tiles.launches == 0, "fit_demo launched the exact blend")
+    check(k1_launches() == 0, "fit_demo launched the exact blend")
     check(bool(torch.isfinite(losses).all()), "fit_demo: non-finite loss")
     check(float(losses[-1]) < float(losses[0]), f"fit_demo: loss {float(losses[0]):.4g} -> "
           f"{float(losses[-1]):.4g} did not fall")
@@ -1342,13 +1347,13 @@ def phase13_front_ends(dev, card: str, workdir: str, ply_path: str, views: int =
         t0 = time.perf_counter()
         eng, animate = demo.build(args, dev)
         t_build = time.perf_counter() - t0
-        reset_launches()
+        launches.clear()
         got = serve_frames(eng, ("az=0.5&el=0.5&d=3.0&t=0.0&raw=1",
                                  "az=1.2&el=0.4&d=3.0&t=0.5&raw=1",
                                  "az=2.0&el=0.3&d=2.5&t=1.0&raw=1"), animate=animate)
-        k1 = blend_tiles.launches_by_kernel["tile_blend"]
-        check(k1 == blend_tiles.launches >= 3, f"demo {label}: K1 launched {k1} times for "
-              f"3 frames ({dict(blend_tiles.launches_by_kernel)})")
+        k1 = launches["tile_blend"]
+        check(k1 == k1_launches() >= 3, f"demo {label}: K1 launched {k1} times for "
+              f"3 frames ({dict(launches)})")
         for headers, body, _ in got:
             f = np.frombuffer(body, np.uint8).reshape(int(headers["x-h"]), int(headers["x-w"]), 3)
             check(f.shape == (args.height, args.width, 3), f"demo {label}: frame {f.shape}")
@@ -1601,8 +1606,8 @@ def phase16_parallel(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_
     from splat_renderer_tpu_torch import PointConfig, RenderConfig, orbit_ring
     from splat_renderer_tpu_torch.camera import camera_tensors
     from splat_renderer_tpu_torch.fit import fit_splats, fit_splats_dp
-    from splat_renderer_tpu_torch.ops.tile_blend import blend_tiles, blend_tiles_plain, reset_launches
-    from splat_renderer_tpu_torch.ops.tile_blend_diff import diff_backward, diff_forward
+    from splat_renderer_tpu_torch.ops.build import launches
+    from splat_renderer_tpu_torch.ops.tile_blend import blend_tiles, blend_tiles_plain
     from splat_renderer_tpu_torch.parallel import (
         band_frame_fn, depth_band, make_mesh, multichip_frame_fn, rank_generator, render_band,
         render_views_data_parallel,
@@ -1630,11 +1635,11 @@ def phase16_parallel(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_
 
         # ---- 16a: the depth-band frame at one rank against the frame ----
         band = band_frame_fn(scene, mesh, n, pcfg, rcfg, band_slack=slack)
-        reset_launches()
+        launches.clear()
         img, stats = band(params, cam, seed)
         torch.cuda.synchronize()
-        out["k1_launches"] += blend_tiles.launches
-        check(blend_tiles.launches == 1, f"band frame launched K1 {blend_tiles.launches} times")
+        out["k1_launches"] += k1_launches()
+        check(k1_launches() == 1, f"band frame launched K1 {k1_launches()} times")
         splats = model_points(scene, params, rank_generator(seed, 0, dev), n, pcfg, rcfg,
                               device=dev)
         ref = render_splats(splats, cam, rcfg, device=dev)
@@ -1662,11 +1667,11 @@ def phase16_parallel(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_
         # ---- 16a: tile bands at dp = sp = 1, 8 orbit views ----
         cams8 = camera_tensors(orbit_ring(8, aspect=rcfg.width / rcfg.height), dev)
         multi = multichip_frame_fn(scene, mesh, n, pcfg, rcfg)
-        reset_launches()
+        launches.clear()
         views = multi.gather(multi(params, cams8, seed))
         torch.cuda.synchronize()
-        out["k1_launches"] += blend_tiles.launches
-        check(blend_tiles.launches == 8, f"8 views launched K1 {blend_tiles.launches} times")
+        out["k1_launches"] += k1_launches()
+        check(k1_launches() == 8, f"8 views launched K1 {k1_launches()} times")
         loop = lambda: torch.stack([render_splats(splats, camera_at(cams8, i), rcfg,  # noqa: E731
                                                   device=dev) for i in range(8)])
         check(torch.equal(views, loop()), "multichip views differ from render_splats")
@@ -1706,12 +1711,12 @@ def phase16_parallel(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_
                                    for c in cam_list])
         init = {k: torch.full_like(spl_t[k], 0.5) for k in APPEARANCE}
         kw = dict(fields=APPEARANCE, steps=3, lr=1e-2, method="kernel", init=init)
-        diff_forward.launches = diff_backward.launches = 0
+        launches.clear()
         dp_fit, dp_losses = fit_splats_dp(spl_t, cams_f, targets, mesh, cfg_t, **kw)
         torch.cuda.synchronize()
-        out["k4_launches"], out["k5_launches"] = diff_forward.launches, diff_backward.launches
-        check((diff_forward.launches, diff_backward.launches) == (24, 24),
-              f"fit_splats_dp launched K4/K5 {diff_forward.launches}/{diff_backward.launches}")
+        k45 = (launches["tile_blend_diff_forward"], launches["tile_blend_diff_backward"])
+        out["k4_launches"], out["k5_launches"] = k45
+        check(k45 == (24, 24), f"fit_splats_dp launched K4/K5 {k45[0]}/{k45[1]}")
         one_fit, one_losses = fit_splats(spl_t, cam_list, list(targets), cfg_t, **kw)
         check(torch.equal(dp_losses, one_losses), f"fit_splats_dp losses {dp_losses.tolist()} "
               f"!= fit_splats {one_losses.tolist()}")
@@ -1766,7 +1771,7 @@ def phase16_parallel(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_
         for sp in (2, 4):
             capacity = math.ceil(slack * n / sp)
             bands = depth_band(words[0], mesh.group, sp)
-            reset_launches()
+            launches.clear()
             parts = {0.0: ([], []), None: ([], [])}
             streams = []
             for b in range(sp):
@@ -1778,8 +1783,8 @@ def phase16_parallel(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_
                     als.append(a)
                 streams.append((received, binned))
             torch.cuda.synchronize()
-            out["k1_launches"] += blend_tiles.launches
-            check(blend_tiles.launches == 2 * sp, f"sp={sp}: K1 launches {blend_tiles.launches}")
+            out["k1_launches"] += k1_launches()
+            check(k1_launches() == 2 * sp, f"sp={sp}: K1 launches {k1_launches()}")
             img0 = tiles_to_image(*fold_bands(*parts[0.0]), rcfg)
             img = tiles_to_image(*fold_bands(*parts[None]), rcfg)
             d0 = float((img0 - ref0).abs().max())
@@ -1818,12 +1823,12 @@ def phase16_parallel(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_
         rows = []
         for sp in (2, 4):
             band_cfg = _band_cfg(rcfg, sp)
-            reset_launches()
+            launches.clear()
             img = torch.cat([render_band(w, b, rcfg, sp) for b in range(sp)])[:rcfg.height]
             torch.cuda.synchronize()
-            out["k1_launches"] += blend_tiles.launches
-            check(blend_tiles.launches == sp, f"sp={sp}: tile bands launched K1 "
-                  f"{blend_tiles.launches} times")
+            out["k1_launches"] += k1_launches()
+            check(k1_launches() == sp, f"sp={sp}: tile bands launched K1 "
+                  f"{k1_launches()} times")
             check(torch.equal(img, ref), f"sp={sp}: tile bands differ from render_splats")
             per_band = []
             for b in range(sp):
@@ -1867,7 +1872,7 @@ def phase17_projector(dev, card: str, headline_cfg, headline_cam, n: int = 1_000
     from torch.profiler import ProfilerActivity, profile
 
     import splat_renderer_tpu_torch as spt
-    from splat_renderer_tpu_torch.ops.project_words import project_words
+    from splat_renderer_tpu_torch.ops.build import launches
     from splat_renderer_tpu_torch.render.pipeline import demo_scene, model_points
     from splat_renderer_tpu_torch.render.projector import (
         splat_screen_words, splat_screen_words_plain,
@@ -1891,11 +1896,10 @@ def phase17_projector(dev, card: str, headline_cfg, headline_cam, n: int = 1_000
     for name, cfg in cfgs.items():
         call = lambda: splat_screen_words(splats, vp, cp, cfg)  # noqa: E731
         plain = lambda: splat_screen_words_plain(splats, vp, cp, cfg)  # noqa: E731
-        before = (project_words.launches, splat_screen_words.launches)
+        before = launches["project_words"]
         got, want = call(), plain()
         torch.cuda.synchronize()
-        check((project_words.launches, splat_screen_words.launches)
-              == (before[0] + 1, before[1] + 1), f"{name}: not one launch a call")
+        check(launches["project_words"] == before + 1, f"{name}: not one launch a call")
         differ = {k: int((bits(got[k]) != bits(want[k])).sum()) for k in want}
         check(not any(differ.values()), f"{name}: kernel vs plain path differ {differ}")
         call_ms = elapsed_ms(call, reps)
@@ -1968,7 +1972,7 @@ def phase18_binner(dev, card: str, headline_cfg, headline_cam, reps: int = 10) -
     from gpubench.bench import cell_parts
     from gpubench.drivers.views import gaussian_scene
     from splat_renderer_tpu_torch.camera import camera_tensors
-    from splat_renderer_tpu_torch.ops.bin_words import bin_words
+    from splat_renderer_tpu_torch.ops.build import launches
     from splat_renderer_tpu_torch.render.binning import bin_packed_words, bin_packed_words_plain
     from splat_renderer_tpu_torch.render.pipeline import demo_scene, model_points
     from splat_renderer_tpu_torch.render.projector import splat_screen_words
@@ -1995,10 +1999,10 @@ def phase18_binner(dev, card: str, headline_cfg, headline_cam, reps: int = 10) -
         n = words[0].shape[0]
         call = lambda: bin_packed_words(*words, cfg)  # noqa: E731
         plain = lambda: bin_packed_words_plain(*words, cfg)  # noqa: E731
-        before = bin_words.launches
+        before = launches["bin_words"]
         got, want = call(), plain()
         torch.cuda.synchronize()
-        check(bin_words.launches == before + 1, f"{name}: not one binner call")
+        check(launches["bin_words"] == before + 1, f"{name}: not one binner call")
         p = int(want["offsets"][-1])
         differ = {k: int((got[k][:p] != want[k][:p]).sum()) if k.startswith("pair_")
                   else int((got[k] != want[k]).sum()) for k in want}
@@ -2054,9 +2058,8 @@ def main() -> None:
     from splat_renderer_tpu_torch.camera import camera_tensors
     from splat_renderer_tpu_torch.convert import splats_from_numpy
     from splat_renderer_tpu_torch.ops import build
-    from splat_renderer_tpu_torch.ops.tile_blend import (
-        blend_tiles, blend_tiles_plain, reset_launches,
-    )
+    from splat_renderer_tpu_torch.ops.build import launches
+    from splat_renderer_tpu_torch.ops.tile_blend import blend_tiles, blend_tiles_plain
     from splat_renderer_tpu_torch.points import point_count
     from splat_renderer_tpu_torch.render.binning import bin_packed_words
     from splat_renderer_tpu_torch.render.compositor import tiles_to_image
@@ -2064,8 +2067,6 @@ def main() -> None:
         Engine, animate_demo, demo_scene, model_points, render_splats,
     )
     from splat_renderer_tpu_torch.render.packing import U32_MASK, unpack_words
-    from splat_renderer_tpu_torch.ops.bin_words import bin_words
-    from splat_renderer_tpu_torch.ops.project_words import project_words
     from splat_renderer_tpu_torch.render.projector import splat_screen_words
 
     t_start = time.perf_counter()
@@ -2187,14 +2188,13 @@ def main() -> None:
             shares.append(share)
         return frame_ms, shares
 
-    reset_launches()
-    # the projector kernel's launches on the main path: these 5 frames'
-    proj0, bin0 = project_words.launches, bin_words.launches
+    # the kernels' launches on the main path: these 5 frames'
+    launches.clear()
     frame_ms, shares = run_frames(eng, 5, 0.0, 0)
-    main_launches = blend_tiles.launches_by_kernel["tile_blend"]
-    proj_launches = project_words.launches - proj0
-    bin_launches = bin_words.launches - bin0
-    check(main_launches == blend_tiles.launches, "Engine frames launched another kernel")
+    main_launches = launches["tile_blend"]
+    proj_launches = launches["project_words"]
+    bin_launches = launches["bin_words"]
+    check(main_launches == k1_launches(), "Engine frames launched another kernel")
     check(main_launches >= 5, f"tile_blend launched {main_launches} times in 5 frames")
     check(proj_launches == 5, f"the projector kernel launched {proj_launches} times in 5 frames")
     check(bin_launches == 5, f"the binner's kernels ran {bin_launches} times in 5 frames")
@@ -2269,9 +2269,9 @@ def main() -> None:
     scene4 = demo_scene()
     eng4 = Engine(scene4, pcfg, spt.surface_render_config(1920, 1080, tiles_per_splat_cap=8),
                   n=1_000_000, device=dev)
-    before = blend_tiles.launches
+    before = k1_launches()
     frame_ms4, shares4 = run_frames(eng4, 2, 0.5, 10)
-    check(blend_tiles.launches - before == 2, "surface frames did not launch the kernel")
+    check(k1_launches() - before == 2, "surface frames did not launch the kernel")
     log(f"phase 4: surface preset Engine n={eng4.n} @1920x1080, 2 frames: coverage "
         f"{min(shares4):.3f}..{max(shares4):.3f}; frame ms "
         + " ".join(f"{t:.2f}" for t in frame_ms4))

@@ -28,7 +28,7 @@ is easy to find.  This package imports torch and never jax.
 - `data`:   datasets on disk -> cameras and targets for fitting.
 - `viewer`: the HTTP viewer and the offline turntable.
 - `utils`:  SSIM and the training losses; splat and checkpoint files; 3DGS
-            `.ply` files; PNG files; timing, logging and profiling.
+            `.ply` files; PNG files; logging and profiling.
 - `apps`:   the command-line front ends (`python -m
             splat_renderer_tpu_torch.apps.demo|fit_demo|datagen`).
 - `convert`: state carried across from the JAX package as numpy.

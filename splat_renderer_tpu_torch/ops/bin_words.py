@@ -6,8 +6,9 @@ the live pairs, bit for bit: offsets, counts, pair_rank[:P], pair_tile[:P]
 and the rec_* planes (P = offsets[-1]).  The tail [P, N*cap) holds the
 sentinel tile in pair_tile and rank 0 in pair_rank (the plain path's tail
 holds the sorted-out sentinel slots' records); nothing reads past P.
-`bin_words.launches` counts its calls.  `render/binning.py::bin_packed_words`
-calls it for CUDA tensors; CPU tensors take the plain path.
+`launches["bin_words"]` (`ops/build.py`) counts its calls.
+`render/binning.py::bin_packed_words` calls it for CUDA tensors; CPU tensors
+take the plain path.
 
 A call is two library calls around one 4-byte read-back: the footprint
 kernel and the scan of the records' live-pair counts, then P, the live
@@ -28,27 +29,16 @@ import torch
 
 from ..config import RenderConfig
 from ..render.packing import INV_ANGLE_SCALE, INV_RATIO_SCALE
+from .build import Entry, check_tensor
 
 # csrc Footprint enum
 ISOTROPIC, ELLIPSE, SQUARE = 0, 1, 2
 _WORDS = ("dkeys", "w_pos", "w_ro", "w_rgb")
-_P = ctypes.c_void_p
-
-
-def _library():
-    from .build import load_library
-
-    lib = load_library("bin_words")
-    if lib.bin_words_count.argtypes is None:
-        lib.bin_words_scratch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
-        lib.bin_words_count.argtypes = (
-            [_P] * 6 + [ctypes.c_int] + [_P] * 8 + [ctypes.c_ulonglong, _P])
-        lib.bin_words_pairs.argtypes = (
-            [_P] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
-            + [ctypes.c_int] * 3 + [_P] * 4 + [ctypes.c_ulonglong] + [_P] * 5)
-        for fn in (lib.bin_words_scratch, lib.bin_words_count, lib.bin_words_pairs):
-            fn.restype = ctypes.c_int
-    return lib
+_P, _I, _LL, _ULL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
+_SCRATCH = Entry("bin_words", "bin_words_scratch", [_I, _I, _I, _P])
+_COUNT = Entry("bin_words", "bin_words_count", [_P] * 6 + [_I] + [_P] * 8 + [_ULL, _P])
+_PAIRS = Entry("bin_words", "bin_words_pairs",
+               [_P] * 3 + [_I, _I, _LL] + [_I] * 3 + [_P] * 4 + [_ULL] + [_P] * 5)
 
 
 def footprint_model(cfg: RenderConfig) -> int:
@@ -92,19 +82,9 @@ def _check(dkeys, w_pos, w_ro, w_rgb, cfg: RenderConfig) -> None:
         raise ValueError(f"cap {cap} or {cfg.tiles_x} x {cfg.tiles_y} tiles out of the "
                          "kernel's window packing (cap < 4096, tiles a side < 2**15)")
     for name, t in words.items():
-        if t.dtype != torch.int64:
-            raise ValueError(f"{name} must be int64 (u32 words), got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != dkeys.device:
-            raise ValueError(f"{name} is on {t.device}, dkeys on {dkeys.device}")
+        check_tensor(name, t, torch.int64, dkeys.device)  # int64 holding u32 words
     if dkeys.device.type != "cuda":
         raise ValueError(f"no binner kernel for device {dkeys.device}")
-
-
-def _raise(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"bin_words: {what} failed: CUDA error {err}")
 
 
 def bin_words(
@@ -120,7 +100,6 @@ def bin_words(
     shaped as `bin_packed_words` documents them.  Raises ValueError on
     inputs the kernels do not take (see `_check`)."""
     _check(dkeys, w_pos, w_ro, w_rgb, cfg)
-    lib = _library()
     n, cap, num_tiles = dkeys.shape[0], cfg.tiles_per_splat_cap, cfg.num_tiles
     slots = n * cap
     end_bit = 32 + num_tiles.bit_length()
@@ -134,34 +113,31 @@ def bin_words(
     off = torch.empty(n + 1, **i32)
     fscalars, iscalars = _scalars(cfg)
     scratch_bytes = (ctypes.c_ulonglong * 2)()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        _raise(lib.bin_words_scratch(n, 0, end_bit, scratch_bytes), "the scan's scratch query")
-        scratch = torch.empty(max(scratch_bytes[0], 1), dtype=torch.uint8, device=device)
-        _raise(lib.bin_words_count(
-            dkeys.data_ptr(), w_pos.data_ptr(), w_ro.data_ptr(), w_rgb.data_ptr(), fscalars,
-            iscalars, n, out["rec_pos"].data_ptr(), out["rec_ro"].data_ptr(),
-            out["rec_rgb"].data_ptr(), out["rec_depth"].data_ptr() if with_depth else None,
-            foot.data_ptr(), cnt.data_ptr(), off.data_ptr(), scratch.data_ptr(),
-            scratch_bytes[0], stream), "the footprint kernel or the scan")
-        p = int(off[n])  # the one read-back: P sizes the sort
-        _raise(lib.bin_words_scratch(n, p, end_bit, scratch_bytes), "the sort's scratch query")
-        scratch = torch.empty(max(scratch_bytes[1], 1), dtype=torch.uint8, device=device)
-        keys_in = torch.empty(p, dtype=torch.int64, device=device)
-        keys_out = torch.empty(p, dtype=torch.int64, device=device)
-        vals_in = torch.empty(p, **i32)
-        out["pair_rank"] = torch.empty(slots, **i32)
-        out["pair_tile"] = torch.empty(slots, **i32)
-        out["offsets"] = torch.empty(num_tiles + 1, **i32)
-        out["counts"] = torch.empty(num_tiles, **i32)
-        _raise(lib.bin_words_pairs(
-            dkeys.data_ptr(), foot.data_ptr(), off.data_ptr(), n, p, slots, cfg.tiles_x,
-            num_tiles, end_bit, keys_in.data_ptr(), keys_out.data_ptr(), vals_in.data_ptr(),
-            scratch.data_ptr(), scratch_bytes[1], out["pair_rank"].data_ptr(),
-            out["pair_tile"].data_ptr(), out["offsets"].data_ptr(), out["counts"].data_ptr(),
-            stream), "the emit kernel, the sort or the ranges")
-    bin_words.launches += 1
+    # the scan's scratch, the footprint kernel and the scan
+    _SCRATCH(n, 0, end_bit, scratch_bytes, device=device)
+    scratch = torch.empty(max(scratch_bytes[0], 1), dtype=torch.uint8, device=device)
+    _COUNT.launch(
+        device,
+        dkeys.data_ptr(), w_pos.data_ptr(), w_ro.data_ptr(), w_rgb.data_ptr(), fscalars,
+        iscalars, n, out["rec_pos"].data_ptr(), out["rec_ro"].data_ptr(),
+        out["rec_rgb"].data_ptr(), out["rec_depth"].data_ptr() if with_depth else None,
+        foot.data_ptr(), cnt.data_ptr(), off.data_ptr(), scratch.data_ptr(), scratch_bytes[0])
+    p = int(off[n])  # the one read-back: P sizes the sort
+    # the sort's scratch, the emit kernel, the sort and the ranges
+    _SCRATCH(n, p, end_bit, scratch_bytes, device=device)
+    scratch = torch.empty(max(scratch_bytes[1], 1), dtype=torch.uint8, device=device)
+    keys_in = torch.empty(p, dtype=torch.int64, device=device)
+    keys_out = torch.empty(p, dtype=torch.int64, device=device)
+    vals_in = torch.empty(p, **i32)
+    out["pair_rank"] = torch.empty(slots, **i32)
+    out["pair_tile"] = torch.empty(slots, **i32)
+    out["offsets"] = torch.empty(num_tiles + 1, **i32)
+    out["counts"] = torch.empty(num_tiles, **i32)
+    _PAIRS.launch(
+        device,
+        dkeys.data_ptr(), foot.data_ptr(), off.data_ptr(), n, p, slots, cfg.tiles_x,
+        num_tiles, end_bit, keys_in.data_ptr(), keys_out.data_ptr(), vals_in.data_ptr(),
+        scratch.data_ptr(), scratch_bytes[1], out["pair_rank"].data_ptr(),
+        out["pair_tile"].data_ptr(), out["offsets"].data_ptr(), out["counts"].data_ptr(),
+        count="bin_words")
     return out
-
-
-bin_words.launches = 0

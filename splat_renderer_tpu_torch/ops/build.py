@@ -7,6 +7,14 @@ by name from the source's own directory) and the flags, so an edited source
 rebuilds and an unchanged one loads in milliseconds.  Building needs the
 CUDA toolkit (`nvcc` under $CUDA_HOME, /usr/local/cuda, or on PATH); nothing
 here runs when the package is imported.
+
+Every wrapper reaches its library through `Entry`, one C entry point bound
+at its first call, and checks its tensors with `check_tensor`.  `launches`
+counts kernel launches by kernel, for every wrapper: "tile_blend",
+"tile_blend_depth", "tile_blend_xp", "tile_blend_xp_depth" (K1's schedules
+and forms), "tile_blend_diff_forward", "tile_blend_diff_backward",
+"project_words", "bin_words" (one a binner call) and "probe_rate";
+`launches.clear()` sets them all to 0.
 """
 
 from __future__ import annotations
@@ -17,8 +25,11 @@ import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional, Sequence
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -36,6 +47,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # seconds each library took to compile in this process (0.0 when it was
 # already built)
 build_seconds: Dict[str, float] = {}
+# kernel launches by kernel, all wrappers (module docstring)
+launches: Counter = Counter()
 
 
 def nvcc_path() -> str:
@@ -108,3 +121,68 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _libs[name] = lib
     return lib
+
+
+class Entry:
+    """One `extern "C"` entry point of `csrc/<library>.cu`, returning a CUDA
+    error code.  The library is built, loaded and the function given its
+    `argtypes` (the whole C signature, a launch's trailing stream included)
+    and an int return at the first call, not before."""
+
+    def __init__(self, library: str, name: str, argtypes: Sequence) -> None:
+        self.library, self.name, self.argtypes = library, name, list(argtypes)
+        self._fn = None
+
+    def _bind(self):
+        fn = getattr(load_library(self.library), self.name)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._fn = fn
+        return fn
+
+    def _check(self, err: int) -> None:
+        if err != 0:
+            raise RuntimeError(f"{self.name} failed: CUDA error {err}")
+
+    def __call__(self, *args, device: Optional[torch.device] = None) -> None:
+        """A query (no stream, not counted): call with `args` as they are, on
+        the CUDA `device` (an indexed one, as a tensor's) if given, else on
+        the current device."""
+        fn = self._fn or self._bind()
+        if device is None:
+            err = fn(*args)
+        else:
+            with torch.cuda.device(device.index):
+                err = fn(*args)
+        self._check(err)
+
+    def launch(self, device: torch.device, *args, count: Optional[str] = None) -> None:
+        """Launch on the CUDA `device` (an indexed one, as a tensor's), on its
+        current stream, whose handle is appended to `args`; then, if `count`
+        names a kernel, count one launch of it."""
+        fn = self._fn or self._bind()
+        # the raw handle, not `torch.cuda.current_stream(device).cuda_stream`,
+        # which builds a Stream object: 0.17 against 4.5 us a call on an
+        # H100's host, and a frame makes four launches
+        with torch.cuda.device(device.index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+        self._check(err)
+        if count is not None:
+            launches[count] += 1
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, device: torch.device,
+                 shape: Optional[tuple] = None, contiguous: bool = True) -> None:
+    """Raise ValueError naming `name` unless `t` is a `dtype` tensor on
+    `device` (of `shape`), contiguous unless the kernel reads its strides."""
+    if (t.dtype == dtype and t.device == device
+            and (shape is None or tuple(t.shape) == tuple(shape))
+            and (t.is_contiguous() or not contiguous)):
+        return
+    want = f"{'a contiguous' if contiguous else 'a'} {dtype} tensor on {device}"
+    if shape is not None:
+        want += f" of shape {tuple(shape)}"
+    got = f"{t.dtype} {tuple(t.shape)} on {t.device}"
+    if contiguous and not t.is_contiguous():
+        got += ", not contiguous"
+    raise ValueError(f"{name} must be {want}, got {got}")

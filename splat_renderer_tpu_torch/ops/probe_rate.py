@@ -7,7 +7,8 @@ For CUDA tensors it launches the hand-written kernel `csrc/probe_rate.cu`
 (which replaces the JAX package's Pallas kernel
 `benchmarks/probe_bf16.py::make(dtype).kernel`) or raises; for CPU tensors
 it runs `probe_rate_plain`, the same chain as a Python loop of `torch.mul`
-and `torch.add`.  `probe_rate.launches` counts kernel launches.
+and `torch.add`.  `launches["probe_rate"]` (`ops/build.py`) counts its
+kernel launches; the sweep's are not counted.
 
 The question it answers: is bfloat16 elementwise math outside the tensor
 cores twice the float32 rate on this card?  That decides whether a bfloat16
@@ -34,6 +35,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from .build import Entry, check_tensor
+
 PANEL = (128, 256)  # the probe's panel, float32 in and out
 REPEATS = 256  # chain length per step
 STEPS = 512  # times the whole chain is recomputed
@@ -45,18 +48,9 @@ SWEEP_STEPS_PER_BLOCK = (1, 8, 64)
 SWEEP_THREADS = (128, 256)
 
 
-def _kernel_fn(name: str = "probe_rate_forward"):
-    from .build import load_library
-
-    fn = getattr(load_library("probe_rate"), name)
-    if fn.argtypes is None:
-        if name == "probe_rate_forward":
-            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        else:
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
-                           + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_FORWARD = Entry("probe_rate", "probe_rate_forward", [_P] * 2 + [_I] * 4 + [_P])
+_SWEEP = Entry("probe_rate", "probe_rate_sweep", [_I] + [_P] * 2 + [_I] * 6 + [_P])
 
 
 def probe_rate(
@@ -70,26 +64,16 @@ def probe_rate(
         return probe_rate_plain(x, dtype, repeats, steps=1)
     if x.device.type != "cuda":
         raise ValueError(f"no probe kernel for device {x.device}")
-    if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() % 2:
-        raise ValueError(
-            "the probe panel must be a contiguous float32 tensor with an even "
-            f"number of elements, got {x.dtype} {tuple(x.shape)}"
-        )
+    check_tensor("the probe panel x", x, torch.float32, x.device)
+    if x.numel() % 2:
+        raise ValueError(f"the probe panel must have an even number of elements, got "
+                         f"{tuple(x.shape)}")
     if not 1 <= steps <= 65535 or repeats < 0:
         raise ValueError(f"steps must be in [1, 65535] and repeats >= 0, got {steps}, {repeats}")
     out = torch.empty_like(x)
-    fn = _kernel_fn()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), x.numel(), repeats, steps,
-                 int(dtype == "bf16"), stream)
-    if err != 0:
-        raise RuntimeError(f"probe_rate_forward launch failed: CUDA error {err}")
-    probe_rate.launches += 1
+    _FORWARD.launch(x.device, x.data_ptr(), out.data_ptr(), x.numel(), repeats, steps,
+                    int(dtype == "bf16"), count="probe_rate")
     return out
-
-
-probe_rate.launches = 0
 
 
 def probe_rate_plain(
@@ -158,7 +142,6 @@ def sweep(device, rounds: int = 3, reps: int = 20, seed: int = 0):
     probe's shape: ({name: [ms per round]}, [layouts whose output is not
     bit-equal to the plain chain]).  A layout is (dtype, chains, steps a
     block, threads)."""
-    fn = _kernel_fn("probe_rate_sweep")
     x = torch.rand(PANEL, generator=torch.Generator(device=device).manual_seed(seed),
                    device=device)
     want = {"f32": probe_rate_plain(x, "f32", steps=1),
@@ -166,15 +149,13 @@ def sweep(device, rounds: int = 3, reps: int = 20, seed: int = 0):
     layouts = [(d, c, s, t) for d in SWEEP_DTYPES for c in SWEEP_CHAINS
                for s in SWEEP_STEPS_PER_BLOCK for t in SWEEP_THREADS]
     outs = {lay: torch.empty_like(x) for lay in layouts}
+    # the events and synchronisations below are the device's
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
 
         def run(lay):
             d, c, s, t = lay
-            err = fn(SWEEP_DTYPES[d], x.data_ptr(), outs[lay].data_ptr(), x.numel(), REPEATS,
-                     STEPS, c, s, t, stream)
-            if err:
-                raise RuntimeError(f"probe_rate_sweep {lay}: CUDA error {err}")
+            _SWEEP.launch(x.device, SWEEP_DTYPES[d], x.data_ptr(), outs[lay].data_ptr(),
+                          x.numel(), REPEATS, STEPS, c, s, t)
 
         bad = []
         for lay in layouts:

@@ -3,7 +3,8 @@
 `project_words` launches `csrc/project_words.cu` on CUDA tensors and
 returns what `render/projector.py::splat_screen_words_plain` returns,
 bit for bit: {"dk", "w_pos", "w_ro", "w_rgb"} as int64 tensors holding u32
-values and "depth" as float32; `project_words.launches` counts its launches.
+values and "depth" as float32; `launches["project_words"]` (`ops/build.py`)
+counts its launches.
 `render/projector.py::splat_screen_words` calls it for CUDA tensors; CPU
 tensors take the plain path.  The kernel replaces no TPU kernel (the JAX package's projector
 is plain jnp that XLA fuses): it replaces the plain path's ~300 launches a
@@ -29,6 +30,7 @@ from .._torch_util import sqrt_rn
 from ..config import RenderConfig
 from ..points.properties import COV3D_PLANES
 from ..render.packing import ANGLE_SCALE, COLOR_SCALE, POS_MAX, RATIO_SCALE
+from .build import Entry, check_tensor
 
 # the kernel's plane order (csrc Plane enum): every model reads the first
 # eleven, "cov3d" the seven of COV3D_PLANES after them as well
@@ -37,19 +39,10 @@ ALL_PLANES = PLANES + COV3D_PLANES
 ELLIPSES = ("isotropic", "foreshorten", "ewa", "cov3d")  # csrc Ellipse enum
 
 
-def _kernel_fn():
-    from .build import load_library
-
-    fn = load_library("project_words").project_words_forward
-    if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 2 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
-            + [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 2
-            + [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-    return fn
+_P, _LL = ctypes.c_void_p, ctypes.c_longlong
+_FORWARD = Entry("project_words", "project_words_forward",
+                 [_P] * 2 + [_P, _LL, _LL] + [_P, _LL] + [_P] * 2 + [_P] * 5
+                 + [_LL, ctypes.c_int, ctypes.c_int] + [_P])
 
 
 def ellipse_model(cfg: RenderConfig) -> str:
@@ -88,14 +81,6 @@ def _scalars(cfg: RenderConfig) -> ctypes.Array:
     )
 
 
-def _check(name: str, t: torch.Tensor, device: torch.device, shape: tuple) -> None:
-    if t.dtype != torch.float32 or t.device != device or tuple(t.shape) != shape:
-        raise ValueError(
-            f"{name} must be a float32 tensor of shape {shape} on {device}, "
-            f"got {t.dtype} {tuple(t.shape)} on {t.device}"
-        )
-
-
 def project_words(
     splats: Dict[str, torch.Tensor],
     view_proj: torch.Tensor,  # (4, 4)
@@ -116,10 +101,12 @@ def project_words(
     missing = [k for k in names if k not in splats]
     if missing:
         raise ValueError(f"ellipse model {model!r} needs the splat planes {missing}")
+    # the kernel reads every input at its own strides
     for name in names:
-        _check(f"splats[{name!r}]", splats[name], device, (n,))
-    _check("view_proj", view_proj, device, (4, 4))
-    _check("cam_pos", cam_pos, device, (3,))
+        check_tensor(f"splats[{name!r}]", splats[name], torch.float32, device, (n,),
+                     contiguous=False)
+    check_tensor("view_proj", view_proj, torch.float32, device, (4, 4), contiguous=False)
+    check_tensor("cam_pos", cam_pos, torch.float32, device, (3,), contiguous=False)
     if device.type != "cuda":
         raise ValueError(f"no projector kernel for device {device}")
 
@@ -132,21 +119,14 @@ def project_words(
     words = {k: torch.empty(n, dtype=torch.int64, device=device)
              for k in ("dk", "w_pos", "w_ro", "w_rgb")}
     depth = torch.empty(n, dtype=torch.float32, device=device)
-    fn = _kernel_fn()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(
-            planes, strides, view_proj.data_ptr(), view_proj.stride(0), view_proj.stride(1),
-            cam_pos.data_ptr(), cam_pos.stride(0), light.data_ptr(), _scalars(cfg),
-            words["dk"].data_ptr(), words["w_pos"].data_ptr(), words["w_ro"].data_ptr(),
-            words["w_rgb"].data_ptr(), depth.data_ptr(), n,
-            ELLIPSES.index(model), int(dilates(cfg)), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"project_words_forward launch failed: CUDA error {err}")
-    project_words.launches += 1
+    _FORWARD.launch(
+        device,
+        planes, strides, view_proj.data_ptr(), view_proj.stride(0), view_proj.stride(1),
+        cam_pos.data_ptr(), cam_pos.stride(0), light.data_ptr(), _scalars(cfg),
+        words["dk"].data_ptr(), words["w_pos"].data_ptr(), words["w_ro"].data_ptr(),
+        words["w_rgb"].data_ptr(), depth.data_ptr(), n,
+        ELLIPSES.index(model), int(dilates(cfg)),
+        count="project_words",
+    )
     words["depth"] = depth
     return words
-
-
-project_words.launches = 0

@@ -24,9 +24,8 @@ hold them against the twin's alphas, nothing on the card's path calls them.
 `with_depth=True` (the G-buffer stream, `bin_packed_words(with_depth=True)`)
 adds a third output: the premultiplied depth sum under the colour's weights.
 
-`blend_tiles.launches` counts every kernel launch;
-`blend_tiles.launches_by_kernel` counts them by kernel: "tile_blend",
-"tile_blend_depth", "tile_blend_xp", "tile_blend_xp_depth".
+The launch counter `launches` of `ops/build.py` counts them under the
+kernel's key, one of `KERNELS`.
 
 Returns (tile_color (T, tp, 3), tile_alpha (T, tp)) float32, plus tile_depth
 (T, tp) with depth; tiles with no records come out as zeros.
@@ -36,12 +35,11 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..config import RenderConfig
-from ..render.binning import Binned
 from ..utils.profiling import span
 from .._torch_util import maximum, minimum
 from ..render.blend import segmented_exclusive_product, splat_alpha_planes
@@ -52,13 +50,19 @@ from ..render.packing import (
     U32_MASK,
     unpack_words,
 )
+from .build import Entry, check_tensor
 
 MAX_TILE_PIXELS = 1024  # one thread per pixel, one CTA per tile
 CULL_SLACK = 1.001  # csrc/warp_cull.cuh kCullSlack: the oriented culling bound's widening
 
 _INT32_INPUTS = ("offsets", "pair_rank", "rec_pos", "rec_ro", "rec_rgb")
 SCHEDULES = ("tile", "tile_xp")
+# the launch counter's keys of this module's kernel: schedule and form
 KERNELS = ("tile_blend", "tile_blend_depth", "tile_blend_xp", "tile_blend_xp_depth")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FORWARD = Entry("tile_blend", "tile_blend_forward", [_P] * 11 + [_I] * 6 + [_F] * 10 + [_P])
+_LAUNCH_INFO = Entry("tile_blend", "tile_blend_launch_info", [_I] * 6 + [_P])
 
 
 def _shape_code(cfg: RenderConfig) -> int:
@@ -68,36 +72,14 @@ def _shape_code(cfg: RenderConfig) -> int:
     return 2 if cfg.quad else 1
 
 
-def _kernel_fn():
-    from .build import load_library
-
-    lib = load_library("tile_blend")
-    fn = lib.tile_blend_forward
-    if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-            + [ctypes.c_float] * 10 + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        lib.tile_blend_launch_info.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.tile_blend_launch_info.restype = ctypes.c_int
-    return fn
-
-
 def launch_info(cfg: RenderConfig, schedule: str = "tile", with_depth: bool = False) -> dict:
     """What the kernel of (cfg's profile, schedule, with_depth) gets on the
     current CUDA device at cfg's tile shape: registers per thread, resident
     CTAs per SM (the occupancy query's answer), SMs, dynamic shared memory
     bytes, and the persistent schedule's full grid."""
-    _kernel_fn()
-    from .build import load_library
-
     out = (ctypes.c_int * 4)()
-    err = load_library("tile_blend").tile_blend_launch_info(
-        int(cfg.oriented), _shape_code(cfg), int(with_depth), int(schedule == "tile_xp"),
-        cfg.tile_w, cfg.tile_h, out)
-    if err != 0:
-        raise RuntimeError(f"tile_blend_launch_info failed: CUDA error {err}")
+    _LAUNCH_INFO(int(cfg.oriented), _shape_code(cfg), int(with_depth), int(schedule == "tile_xp"),
+                 cfg.tile_w, cfg.tile_h, out)
     regs, per_sm, sms, smem = out
     return dict(registers=regs, ctas_per_sm=per_sm, sms=sms, smem_bytes=smem,
                 xp_grid=per_sm * sms)
@@ -189,7 +171,7 @@ def staged_cut2(radius: torch.Tensor, opacity: torch.Tensor, ratio: torch.Tensor
 
 @span("blend")
 def blend_tiles(
-    binned: Binned,
+    binned: Dict[str, torch.Tensor],
     cfg: RenderConfig,
     eps: Optional[float] = None,
     schedule: str = "tile",
@@ -222,18 +204,11 @@ def blend_tiles(
             f"tile {cfg.tile_w}x{cfg.tile_h} has {tp} pixels; the kernel runs "
             f"one thread per pixel, at most {MAX_TILE_PIXELS}"
         )
-    for name in _INT32_INPUTS + (("rec_depth",) if with_depth else ()):
-        t = binned[name]
-        if t.device != offsets.device or t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(
-                f"binned[{name!r}] must be a contiguous int32 tensor on "
-                f"{offsets.device}, got {t.dtype} on {t.device}"
-            )
-    if offsets.shape != (num_tiles + 1,):
-        raise ValueError(f"offsets has shape {tuple(offsets.shape)}, "
-                         f"expected ({num_tiles + 1},)")
-
     device = offsets.device
+    for name in _INT32_INPUTS + (("rec_depth",) if with_depth else ()):
+        check_tensor(f"binned[{name!r}]", binned[name], torch.int32, device,
+                     shape=(num_tiles + 1,) if name == "offsets" else None)
+
     xp = schedule == "tile_xp"
     # the persistent kernel never visits an empty tile: its outputs start as
     # zeros; the per-tile kernel writes every tile
@@ -243,47 +218,29 @@ def blend_tiles(
     tile_depth = alloc((num_tiles, tp), dtype=torch.float32, device=device) if with_depth else None
     tile_list, n_list = nonempty_tiles(binned["counts"]) if xp else (None, None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    fn = _kernel_fn()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(
-            offsets.data_ptr(), binned["pair_rank"].data_ptr(),
-            binned["rec_pos"].data_ptr(), binned["rec_ro"].data_ptr(),
-            binned["rec_rgb"].data_ptr(),
-            binned["rec_depth"].data_ptr() if with_depth else None,
-            tile_color.data_ptr(), tile_alpha.data_ptr(), ptr(tile_depth),
-            ptr(tile_list), ptr(n_list),
-            num_tiles, cfg.tiles_x, cfg.tile_w, cfg.tile_h,
-            int(cfg.oriented), _shape_code(cfg),
-            1.0 / cfg.pos_scale, cfg.pos_offset, cfg.min_screen_radius,
-            cfg.bounds_margin * cfg.bounds_margin,
-            -0.5 / (cfg.sigma * cfg.sigma), eps,
-            INV_COLOR_SCALE, INV_ANGLE_SCALE, INV_RATIO_SCALE, math.pi,
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"tile_blend_forward launch failed: CUDA error {err}")
-    blend_tiles.launches += 1
-    kernel = ("tile_blend_xp" if xp else "tile_blend") + ("_depth" if with_depth else "")
-    blend_tiles.launches_by_kernel[kernel] += 1
+    _FORWARD.launch(
+        device,
+        offsets.data_ptr(), binned["pair_rank"].data_ptr(),
+        binned["rec_pos"].data_ptr(), binned["rec_ro"].data_ptr(),
+        binned["rec_rgb"].data_ptr(),
+        binned["rec_depth"].data_ptr() if with_depth else None,
+        tile_color.data_ptr(), tile_alpha.data_ptr(), ptr(tile_depth),
+        ptr(tile_list), ptr(n_list),
+        num_tiles, cfg.tiles_x, cfg.tile_w, cfg.tile_h,
+        int(cfg.oriented), _shape_code(cfg),
+        1.0 / cfg.pos_scale, cfg.pos_offset, cfg.min_screen_radius,
+        cfg.bounds_margin * cfg.bounds_margin,
+        -0.5 / (cfg.sigma * cfg.sigma), eps,
+        INV_COLOR_SCALE, INV_ANGLE_SCALE, INV_RATIO_SCALE, math.pi,
+        count=("tile_blend_xp" if xp else "tile_blend") + ("_depth" if with_depth else ""),
+    )
     if with_depth:
         return tile_color, tile_alpha, tile_depth
     return tile_color, tile_alpha
 
 
-blend_tiles.launches = 0
-blend_tiles.launches_by_kernel = dict.fromkeys(KERNELS, 0)
-
-
-def reset_launches() -> None:
-    """Set every launch count of this module to 0."""
-    blend_tiles.launches = 0
-    for k in KERNELS:
-        blend_tiles.launches_by_kernel[k] = 0
-
-
 def blend_tiles_plain(
-    binned: Binned,
+    binned: Dict[str, torch.Tensor],
     cfg: RenderConfig,
     eps: Optional[float] = None,
     pair_chunk: int = 1024,

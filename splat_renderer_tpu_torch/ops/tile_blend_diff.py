@@ -8,8 +8,9 @@ Hopper kernel `tile_blend_diff_forward` and its backward
 package's Pallas kernels `ops/tile_blend_diff.py::_make_fwd_kernel` and
 `_make_bwd_kernel`); a failed build or launch raises, nothing falls back.
 For CPU tensors it runs `blend_planes_plain`, the same function in plain
-PyTorch, differentiated by autograd.  `diff_forward.launches` and
-`diff_backward.launches` count kernel launches.
+PyTorch, differentiated by autograd.  The launch counter `launches` of
+`ops/build.py` counts the kernels' launches under "tile_blend_diff_forward"
+and "tile_blend_diff_backward".
 
 Semantics are those of the JAX package's `blend_planes_pallas`: no early
 exit, alpha clamped at ALPHA_CAP, colour and expected depth accumulated
@@ -45,6 +46,7 @@ from .._torch_util import maximum, minimum, rdiv
 from ..config import RenderConfig
 from ..render.binning import Binned, bin_planes_diff, diff_fields
 from ..render.blend import ellipse_cos_sin, segmented_exclusive_product
+from .build import Entry, check_tensor
 
 ALPHA_CAP = 1.0 - 1e-7  # shared with render/compositor.py's differentiable mode
 MAX_TILE_PIXELS = 1024  # one thread per pixel, one CTA per tile
@@ -58,20 +60,11 @@ _PLANE_NAMES = ("cx", "cy", "radius", "opacity", "r", "g", "b", "angle", "ratio"
 TileOutputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def _kernel_fns():
-    from .build import load_library
-
-    lib = load_library("tile_blend_diff")
-    fwd, bwd = lib.tile_blend_diff_forward, lib.tile_blend_diff_backward
-    if fwd.argtypes is None:
-        tail = [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
-        fwd.argtypes = [ctypes.c_void_p] * 7 + tail
-        fwd.restype = ctypes.c_int
-        bwd.argtypes = [ctypes.c_void_p] * 9 + tail
-        bwd.restype = ctypes.c_int
-        lib.tile_blend_diff_launch_info.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        lib.tile_blend_diff_launch_info.restype = ctypes.c_int
-    return fwd, bwd
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_TAIL = [_I] * 6 + [_F] * 4 + [_P]  # _scalars(cfg), then the stream
+_FORWARD = Entry("tile_blend_diff", "tile_blend_diff_forward", [_P] * 7 + _TAIL)
+_BACKWARD = Entry("tile_blend_diff", "tile_blend_diff_backward", [_P] * 9 + _TAIL)
+_LAUNCH_INFO = Entry("tile_blend_diff", "tile_blend_diff_launch_info", [_I] * 5 + [_P])
 
 
 def bwd_chunk(cfg: RenderConfig) -> int:
@@ -87,14 +80,8 @@ def launch_info(cfg: RenderConfig, forward: bool = False) -> dict:
     device at cfg's profile and tile shape: registers per thread, resident
     CTAs per SM (the occupancy query's answer), SMs, dynamic shared memory
     bytes, the backward's chunk."""
-    _kernel_fns()
-    from .build import load_library
-
     out = (ctypes.c_int * 4)()
-    err = load_library("tile_blend_diff").tile_blend_diff_launch_info(
-        int(cfg.oriented), cfg.tile_w, cfg.tile_h, bwd_chunk(cfg), int(forward), out)
-    if err != 0:
-        raise RuntimeError(f"tile_blend_diff_launch_info failed: CUDA error {err}")
+    _LAUNCH_INFO(int(cfg.oriented), cfg.tile_w, cfg.tile_h, bwd_chunk(cfg), int(forward), out)
     regs, per_sm, sms, smem = out
     return dict(registers=regs, ctas_per_sm=per_sm, sms=sms, smem_bytes=smem,
                 bwd_chunk=bwd_chunk(cfg))
@@ -111,12 +98,11 @@ def _check_launchable(binned: Binned, cfg: RenderConfig) -> torch.device:
             f"thread per pixel: a multiple of 32, at most {MAX_TILE_PIXELS}"
         )
     for name in ("offsets", "pair_rank", "pair_slot"):
-        t = binned[name]
-        if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"binned[{name!r}] must be a contiguous int32 tensor on {device}")
+        check_tensor(f"binned[{name!r}]", binned[name], torch.int32, device)
     planes = binned["planes"]
-    if planes.dtype != torch.float32 or planes.shape[1:] != (len(diff_fields(cfg)),):
-        raise ValueError(f"binned['planes'] must be (N, {len(diff_fields(cfg))}) float32")
+    # copied to a contiguous, aligned block before a launch (_aligned_planes)
+    check_tensor("binned['planes']", planes, torch.float32, device,
+                 shape=(planes.shape[0], len(diff_fields(cfg))), contiguous=False)
     return device
 
 
@@ -178,23 +164,16 @@ def diff_forward(
     tile_color = torch.empty((t, tp, 3), dtype=torch.float32, device=device)
     tile_alpha = torch.empty((t, tp), dtype=torch.float32, device=device)
     tile_depth = torch.empty((t, tp), dtype=torch.float32, device=device)
-    fwd, _ = _kernel_fns()
-    with torch.cuda.device(device):
-        err = fwd(
-            binned["offsets"].data_ptr(), binned["pair_rank"].data_ptr(),
-            planes.data_ptr(), tile_color.data_ptr(), tile_alpha.data_ptr(),
-            tile_depth.data_ptr(),
-            None if t_start is None else t_start.data_ptr(), *_scalars(cfg),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"tile_blend_diff_forward launch failed: CUDA error {err}")
-    diff_forward.launches += 1
+    _FORWARD.launch(
+        device,
+        binned["offsets"].data_ptr(), binned["pair_rank"].data_ptr(),
+        planes.data_ptr(), tile_color.data_ptr(), tile_alpha.data_ptr(),
+        tile_depth.data_ptr(),
+        None if t_start is None else t_start.data_ptr(), *_scalars(cfg),
+        count="tile_blend_diff_forward",
+    )
     outs = (tile_color, tile_alpha, tile_depth)
     return outs + (t_start,) if residuals else outs
-
-
-diff_forward.launches = 0
 
 
 def diff_backward(
@@ -209,33 +188,23 @@ def diff_backward(
     n, nf = binned["planes"].shape
     cap = cfg.tiles_per_splat_cap
     rows = residual_rows(binned, cfg, bwd_chunk(cfg))
-    if (t_start.device != device or t_start.dtype != torch.float32
-            or t_start.shape != (rows, cfg.tile_pixels) or not t_start.is_contiguous()):
-        raise ValueError(
-            f"t_start must be the ({rows}, {cfg.tile_pixels}) float32 residuals of "
-            "diff_forward(binned, cfg, residuals=True) on this stream")
+    check_tensor("t_start (the residuals of diff_forward(binned, cfg, residuals=True))",
+                 t_start, torch.float32, device, shape=(rows, cfg.tile_pixels))
     planes = _aligned_planes(binned)
     cots = [c.to(torch.float32).contiguous() for c in cotangents]
     grad_slots = torch.zeros((cap * n, nf), dtype=torch.float32, device=device)
-    _, bwd = _kernel_fns()
-    with torch.cuda.device(device):
-        err = bwd(
-            binned["offsets"].data_ptr(), binned["pair_rank"].data_ptr(),
-            binned["pair_slot"].data_ptr(), planes.data_ptr(),
-            *(c.data_ptr() for c in cots), t_start.data_ptr(),
-            grad_slots.data_ptr(), *_scalars(cfg),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"tile_blend_diff_backward launch failed: CUDA error {err}")
-    diff_backward.launches += 1
+    _BACKWARD.launch(
+        device,
+        binned["offsets"].data_ptr(), binned["pair_rank"].data_ptr(),
+        binned["pair_slot"].data_ptr(), planes.data_ptr(),
+        *(c.data_ptr() for c in cots), t_start.data_ptr(),
+        grad_slots.data_ptr(), *_scalars(cfg),
+        count="tile_blend_diff_backward",
+    )
     per_rank = grad_slots.view(cap, n, nf).sum(0)  # fixed order: deterministic
     grads = torch.empty_like(per_rank)
     grads[binned["src"]] = per_rank  # src is a permutation: an assignment
     return grads
-
-
-diff_backward.launches = 0
 
 
 class _BlendPlanes(torch.autograd.Function):

@@ -57,9 +57,6 @@ Binned = Dict[str, torch.Tensor]
 
 # depth key of +inf (culled records): 0x7F800000 | 0x80000000
 _INF_KEY = 0xFF800000
-# one kernel-path call, for the `bin_kernel` counter (a host tensor: the
-# count adds nothing to the device's work)
-_ONE = torch.ones((), dtype=torch.int64)
 
 
 def _footprint_cols(
@@ -358,9 +355,8 @@ def bin_packed_words(
     indexes them.
 
     Which path runs: on CUDA tensors the hand-written binner
-    (`ops/bin_words.py`, counted by `bin_words.launches` and, while tracing
-    is on, by the program counter `bin_kernel`); it reads P, the live pairs,
-    back to the host once, to size its sort.  On CPU tensors the plain path
+    (`ops/bin_words.py`, counted in `ops/build.py`'s `launches`); it reads
+    P, the live pairs, back to the host once, to size its sort.  On CPU tensors the plain path
     `bin_packed_words_plain`, whose `bincount` reads back as well.  Both
     count `pairs` (offsets[-1]) while tracing is on.
 
@@ -375,7 +371,6 @@ def bin_packed_words(
     out = bin_words(dkeys.contiguous(), w_pos.contiguous(), w_ro.contiguous(),
                     w_rgb.contiguous(), cfg, with_depth=with_depth)
     if enabled():
-        count("bin_kernel", _ONE)
         count("pairs", out["offsets"][-1])
     return out
 

@@ -305,17 +305,11 @@ def splat_screen_words(
 
     Returns {"dk", "w_pos", "w_ro", "w_rgb", "depth"}.  For CUDA planes
     one launch of the projector kernel (`ops/project_words.py`; it raises
-    on inputs it does not take), which `project_words.launches` counts,
-    and `splat_screen_words.launches` with it for the calls made here; for
-    CPU planes `splat_screen_words_plain`."""
+    on inputs it does not take), counted in `ops/build.py`'s `launches`;
+    for CPU planes `splat_screen_words_plain`."""
     if splats["px"].device.type == "cpu":
         return splat_screen_words_plain(splats, view_proj, cam_pos, cfg)
-    words = project_words(splats, view_proj, cam_pos, cfg)
-    splat_screen_words.launches += 1
-    return words
-
-
-splat_screen_words.launches = 0
+    return project_words(splats, view_proj, cam_pos, cfg)
 
 
 def count_cov3d(words: Dict[str, torch.Tensor], cfg: RenderConfig) -> None:

@@ -1,18 +1,15 @@
 """Host-side helpers: `ssim` (the 3DGS training loss and the host-side
 quality scoreboard), `snapshot` (splat sets and training-state pytrees in
 .npz), `ply` (3DGS `.ply` scenes), `image` (PNG files and uint8
-quantization), `timing` (CUDA-event stage timing), `log` (the package
-logger) and `profiling` (the recorder's spans and counters, and
-`torch.profiler` traces)."""
+quantization), `log` (the package logger) and `profiling` (the recorder's
+spans and counters, and `torch.profiler` traces)."""
 from .image import to_uint8, write_png
 from .log import log_point_budget, log_rebuild, logger
 from .ply import load_ply, save_ply
 from .profiling import count, span, trace
 from .snapshot import load_pytree, load_splats, save_pytree, save_splats
-from .timing import StageTimer, time_fn
 
 __all__ = [
-    "StageTimer",
     "count",
     "load_ply",
     "load_pytree",
@@ -24,7 +21,6 @@ __all__ = [
     "save_pytree",
     "save_splats",
     "span",
-    "time_fn",
     "to_uint8",
     "trace",
     "write_png",

@@ -224,7 +224,7 @@ def test_kernel_bit_equal_at_2m_gaussians(cuda, aa):
     """The kernel's "cov3d" instantiations at 2M Gaussians and 1080p, on
     the modeler's stride-3 columns for positions and normals: one launch,
     its five outputs bit-equal to the plain path on the card."""
-    from splat_renderer_tpu_torch.ops.project_words import project_words
+    from splat_renderer_tpu_torch.ops.build import launches
 
     cfg = tpt.RenderConfig(**dict(KW, width=1920, height=1080, aa_dilation=aa))
     spl = {k: v.to(cuda) for k, v in _gaussians(2_000_000, seed=9).items()}
@@ -232,9 +232,9 @@ def test_kernel_bit_equal_at_2m_gaussians(cuda, aa):
         stacked = torch.stack([spl[k] for k in cols], 1)
         spl.update({k: stacked[:, j] for j, k in enumerate(cols)})
     cam = {k: v.to(cuda) for k, v in _camera(3).items()}
-    before = project_words.launches
+    before = launches["project_words"]
     got = splat_screen_words(spl, cam["view_proj"], cam["cam_pos"], cfg)
-    assert project_words.launches == before + 1
+    assert launches["project_words"] == before + 1
     from splat_renderer_tpu_torch.render.projector import splat_screen_words_plain
 
     want = splat_screen_words_plain(spl, cam["view_proj"], cam["cam_pos"], cfg)

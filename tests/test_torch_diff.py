@@ -29,7 +29,8 @@ from splat_renderer_tpu.utils import ssim as j_ssim
 import splat_renderer_tpu_torch as tpt
 from splat_renderer_tpu_torch._torch_util import clip
 from splat_renderer_tpu_torch.convert import camera_from_numpy, splats_from_numpy
-from splat_renderer_tpu_torch.ops.tile_blend_diff import blend_planes, diff_forward
+from splat_renderer_tpu_torch.ops.build import launches
+from splat_renderer_tpu_torch.ops.tile_blend_diff import blend_planes
 from splat_renderer_tpu_torch.render.binning import bin_planes_diff, diff_fields
 from splat_renderer_tpu_torch.render.diff import render_diff, render_diff_gbuffer
 from splat_renderer_tpu_torch.utils import ssim as t_ssim
@@ -117,9 +118,9 @@ def test_bin_planes_diff_matches_jax(case):
 @pytest.mark.parametrize("method", ["oracle", "tiles", "kernel"])
 def test_render_diff_matches_jax(case, method):
     spl = splats_from_numpy(case["np_splats"], "cpu")
-    before = diff_forward.launches
+    before = launches["tile_blend_diff_forward"]
     got = render_diff(spl, case["tcam"], case["tc"], method=method).numpy()
-    assert diff_forward.launches == before  # CPU tensors: the twin, no kernel
+    assert launches["tile_blend_diff_forward"] == before  # CPU tensors: the twin, no kernel
     assert got.shape == (H, W, 3) and np.isfinite(got).all()
     np.testing.assert_allclose(got, case["img_tiles"], atol=IMG_TOL, rtol=0)
     np.testing.assert_allclose(got, case["img_pallas"], atol=IMG_TOL, rtol=0)
@@ -339,7 +340,7 @@ def test_backward_kernel_refuses_cpu_tensors():
     from splat_renderer_tpu_torch.ops.tile_blend_diff import diff_backward
 
     cfg, binned, cots = _random_stream({}, n=20)
-    before = diff_backward.launches
+    before = launches["tile_blend_diff_backward"]
     with pytest.raises(ValueError, match="no differentiable tile-blend kernel"):
         diff_backward(binned, cfg, cots, torch.zeros((1, cfg.tile_pixels)))
-    assert diff_backward.launches == before
+    assert launches["tile_blend_diff_backward"] == before

@@ -13,7 +13,8 @@ import torch
 import splat_renderer_tpu_torch as tpt
 from splat_renderer_tpu_torch.camera import camera_tensors
 from splat_renderer_tpu_torch.convert import splats_from_numpy
-from splat_renderer_tpu_torch.ops.tile_blend import blend_tiles, blend_tiles_plain
+from splat_renderer_tpu_torch.ops.build import launches
+from splat_renderer_tpu_torch.ops.tile_blend import KERNELS, blend_tiles, blend_tiles_plain
 from splat_renderer_tpu_torch.render.binning import bin_packed_words, canonical_order
 from splat_renderer_tpu_torch.render.projector import splat_screen_words
 
@@ -34,6 +35,11 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the tile-blend kernel runs only on the card")
     return torch.device("cuda")
+
+
+def k1_launches() -> int:
+    """K1's launches, all schedules and forms."""
+    return sum(launches[k] for k in KERNELS)
 
 
 def _binned(device, cfg, seed=0, n=4000, with_depth=False, presort=False):
@@ -66,9 +72,9 @@ def test_depth_kernel_matches_twin(cuda, profile, tiles):
     cfg = tpt.RenderConfig(width=200, height=120, tiles_per_splat_cap=8,
                            **PROFILES[profile], **TILES[tiles])
     binned = _binned(cuda, cfg, with_depth=True)
-    before = blend_tiles.launches_by_kernel["tile_blend_depth"]
+    before = launches["tile_blend_depth"]
     kc, ka, kd = blend_tiles(binned, cfg, eps=0.0, with_depth=True)
-    assert blend_tiles.launches_by_kernel["tile_blend_depth"] == before + 1
+    assert launches["tile_blend_depth"] == before + 1
     pc, pa, pd = blend_tiles_plain(binned, cfg, eps=0.0, with_depth=True)
     torch.cuda.synchronize()
     d = binned["rec_depth"].view(torch.float32)
@@ -95,10 +101,10 @@ def test_prefetch_kernel_equals_per_tile_kernel(cuda, profile, tiles):
     for eps in (0.0, 0.01):
         for with_depth in (False, True):
             name = "tile_blend_xp" + ("_depth" if with_depth else "")
-            before = blend_tiles.launches_by_kernel[name]
+            before = launches[name]
             a = blend_tiles(binned, cfg, eps=eps, with_depth=with_depth)
             b = blend_tiles(binned, cfg, eps=eps, schedule="tile_xp", with_depth=with_depth)
-            assert blend_tiles.launches_by_kernel[name] == before + 1
+            assert launches[name] == before + 1
             torch.cuda.synchronize()
             for x, y in zip(a, b):
                 assert torch.equal(x, y), (eps, with_depth)
@@ -129,9 +135,9 @@ def test_rate_probe_matches_twin(cuda, dtype):
     for shape in (PANEL, (2, 1001)):
         x = torch.rand(shape, generator=g, device=cuda)
         for repeats in (0, 1, 5, 256):
-            before = probe_rate.launches
+            before = launches["probe_rate"]
             got = probe_rate(x, dtype, repeats=repeats, steps=3)
-            assert probe_rate.launches == before + 1
+            assert launches["probe_rate"] == before + 1
             want = probe_rate_plain(x, dtype, repeats=repeats, steps=1)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (shape, repeats)
@@ -151,9 +157,9 @@ def test_kernels_on_a_depth_key_order_stream(cuda, with_depth, tiles):
     exact = _binned(cuda, cfg, with_depth=with_depth, presort=True)
     assert not torch.equal(dko["pair_rank"], exact["pair_rank"])
     kernel = "tile_blend_depth" if with_depth else "tile_blend"
-    before = blend_tiles.launches_by_kernel[kernel]
+    before = launches[kernel]
     got = blend_tiles(dko, cfg, eps=0.0, with_depth=with_depth)
-    assert blend_tiles.launches_by_kernel[kernel] == before + 1
+    assert launches[kernel] == before + 1
     twin = blend_tiles_plain(dko, cfg, eps=0.0, with_depth=with_depth)
     want = blend_tiles(exact, cfg, eps=0.0, with_depth=with_depth)
     torch.cuda.synchronize()
@@ -168,9 +174,9 @@ def test_kernel_matches_twin(cuda, profile, tiles):
     cfg = tpt.RenderConfig(width=200, height=120, tiles_per_splat_cap=8,
                            **PROFILES[profile], **TILES[tiles])
     binned = _binned(cuda, cfg)
-    before = blend_tiles.launches
+    before = k1_launches()
     kc, ka = blend_tiles(binned, cfg, eps=0.0)
-    assert blend_tiles.launches == before + 1
+    assert k1_launches() == before + 1
     pc, pa = blend_tiles_plain(binned, cfg, eps=0.0)
     torch.cuda.synchronize()
     assert float((kc - pc).abs().max()) <= 2e-5
@@ -229,9 +235,7 @@ def _blend_and_grads(fn, cfg, planes, cots):
 @pytest.mark.parametrize("tiles", sorted(TILES))
 @pytest.mark.parametrize("profile", sorted(DIFF_PROFILES))
 def test_diff_kernels_match_twin(cuda, profile, tiles):
-    from splat_renderer_tpu_torch.ops.tile_blend_diff import (
-        blend_planes, blend_planes_plain, diff_backward, diff_forward,
-    )
+    from splat_renderer_tpu_torch.ops.tile_blend_diff import blend_planes, blend_planes_plain
 
     prof, grad_tol = DIFF_PROFILES[profile]
     cfg = tpt.RenderConfig(width=200, height=120, tiles_per_splat_cap=8, **prof, **TILES[tiles])
@@ -240,9 +244,10 @@ def test_diff_kernels_match_twin(cuda, profile, tiles):
     shapes = [(cfg.num_tiles, cfg.tile_pixels, 3), (cfg.num_tiles, cfg.tile_pixels),
               (cfg.num_tiles, cfg.tile_pixels)]
     cots = [torch.rand(s, generator=g, device=cuda) - 0.5 for s in shapes]
-    f0, b0 = diff_forward.launches, diff_backward.launches
+    keys = ("tile_blend_diff_forward", "tile_blend_diff_backward")
+    before = [launches[k] for k in keys]
     k_out, k_grads = _blend_and_grads(blend_planes, cfg, planes, cots)
-    assert (diff_forward.launches, diff_backward.launches) == (f0 + 1, b0 + 1)
+    assert [launches[k] - b for k, b in zip(keys, before)] == [1, 1]
     p_out, p_grads = _blend_and_grads(blend_planes_plain, cfg, planes, cots)
     torch.cuda.synchronize()
     for k, p in zip(k_out, p_out):

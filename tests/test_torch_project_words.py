@@ -19,6 +19,7 @@ import splat_renderer_tpu_torch as tpt
 from splat_renderer_tpu_torch._torch_util import sqrt_rn
 from splat_renderer_tpu_torch.camera import camera_tensors
 from splat_renderer_tpu_torch.convert import splats_from_numpy
+from splat_renderer_tpu_torch.ops.build import launches
 from splat_renderer_tpu_torch.ops.project_words import (
     ALL_PLANES,
     PLANES,
@@ -156,9 +157,9 @@ def test_cpu_takes_the_plain_path(profile):
     cfg = PROFILES[profile]()
     spl = _columns(splats_from_numpy(_profile_planes(cfg, 1500, seed=1), "cpu"))
     cam = _camera("cpu")
-    before = (project_words.launches, splat_screen_words.launches)
+    before = launches["project_words"]
     got = splat_screen_words(spl, cam["view_proj"], cam["cam_pos"], cfg)
-    assert (project_words.launches, splat_screen_words.launches) == before
+    assert launches["project_words"] == before
     _assert_bit_equal(got, splat_screen_words_plain(spl, cam["view_proj"], cam["cam_pos"], cfg))
 
 
@@ -305,9 +306,9 @@ def test_kernel_bit_equal_at_1m_splats(cuda):
                            tiles_per_splat_cap=4, tile_size=32, tile_height=16)
     cam = camera_tensors(tpt.Camera(aspect=1920 / 1080).arrays(), cuda)
     spl = _columns(splats_from_numpy(_planes(1_000_000, seed=4), cuda))
-    before = splat_screen_words.launches
+    before = launches["project_words"]
     got = splat_screen_words(spl, cam["view_proj"], cam["cam_pos"], cfg)
-    assert splat_screen_words.launches == before + 1
+    assert launches["project_words"] == before + 1
     want = splat_screen_words_plain(spl, cam["view_proj"], cam["cam_pos"], cfg)
     torch.cuda.synchronize()
     _assert_bit_equal(got, want)
@@ -318,19 +319,17 @@ def test_kernel_bit_equal_at_1m_splats(cuda):
 
 @pytest.mark.gpu
 def test_one_launch_per_call(cuda):
-    """Each call through the entry point is one launch, counted by the
-    wrapper and by the entry point; a direct call to the wrapper is
-    counted by the wrapper."""
+    """Each call through the entry point is one launch, and so is a direct
+    call to the wrapper: both counted under "project_words"."""
     cfg = PROFILES["ewa"]()
     cam = _camera(cuda)
     spl = splats_from_numpy(_planes(3000), cuda)
-    before = (project_words.launches, splat_screen_words.launches)
+    before = launches["project_words"]
     for k in range(1, 4):
         splat_screen_words(spl, cam["view_proj"], cam["cam_pos"], cfg)
-        assert (project_words.launches, splat_screen_words.launches) == (
-            before[0] + k, before[1] + k)
+        assert launches["project_words"] == before + k
     project_words(spl, cam["view_proj"], cam["cam_pos"], cfg)
-    assert (project_words.launches, splat_screen_words.launches) == (before[0] + 4, before[1] + 3)
+    assert launches["project_words"] == before + 4
     torch.cuda.synchronize()
 
 
@@ -342,7 +341,7 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     spl = splats_from_numpy(_planes(500), cuda)
     cam = _camera(cuda)
     vp, cp = cam["view_proj"], cam["cam_pos"]
-    before = (project_words.launches, splat_screen_words.launches)
+    before = launches["project_words"]
     with pytest.raises(ValueError, match="float32"):
         splat_screen_words(dict(spl, nx=spl["nx"].double()), vp, cp, cfg)
     with pytest.raises(ValueError, match=r"shape \(500,\)"):
@@ -351,4 +350,4 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         splat_screen_words(spl, vp.cpu(), cp, cfg)
     with pytest.raises(ValueError, match="cam_pos"):
         splat_screen_words(spl, vp, cp.cpu(), cfg)
-    assert (project_words.launches, splat_screen_words.launches) == before
+    assert launches["project_words"] == before

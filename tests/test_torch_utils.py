@@ -1,22 +1,19 @@
 """The port's host helpers on the CPU: the rebuild notice once per scene
 structure (as tests/test_apps.py::TestObservability holds the JAX Engine's),
-`trace` over torch.profiler with the spans as its ranges, and the timing harness."""
+and `trace` over torch.profiler with the spans as its ranges."""
 
 import io
 import json
 import logging
 import os
 
-import pytest
 import torch
 
 import splat_renderer_tpu_torch as tpt
 from splat_renderer_tpu_torch.camera import camera_tensors
 from splat_renderer_tpu_torch.render.pipeline import Engine
-from splat_renderer_tpu_torch.utils import (StageTimer, log_point_budget, logger, span, time_fn,
-                                            trace)
+from splat_renderer_tpu_torch.utils import log_point_budget, logger, span, trace
 from splat_renderer_tpu_torch.utils.profiling import RANGE_PREFIX, TRACE_FILE, enabled
-from splat_renderer_tpu_torch.utils.timing import time_fn_best
 
 
 def test_rebuild_logged_once_per_structure():
@@ -61,21 +58,3 @@ def test_trace_writes_the_annotated_span(tmp_path):
     assert any(e.get("name") == name for e in events)
     assert [e.count for e in prof.key_averages() if e.key == name] == [1]
 
-
-def test_time_fn_and_stage_timer():
-    calls = []
-
-    def fn(a, b):
-        calls.append(1)
-        return a + b
-
-    x = torch.ones(8)
-    sec, out = time_fn(fn, x, x, warmup=1, iters=3)
-    assert sec > 0 and torch.equal(out, x + x) and len(calls) == 4
-    best, out = time_fn_best(fn, x, x, warmup=0, iters=2, bursts=2)
-    assert best > 0 and torch.equal(out, x + x)
-    st = StageTimer(warmup=0, iters=2)
-    assert torch.equal(st.stage("add", fn, x, x), x + x)
-    assert set(st.ms) == {"add"} and st.ms["add"] > 0
-    with pytest.raises(TypeError):
-        time_fn(fn, x)

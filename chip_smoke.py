@@ -44,9 +44,16 @@ static-scene serving and datagen paths, and checks the images.  Phases:
  10. static-scene serving at full width: 1M demo-scene splats with SH
      degree 3 written to a 3DGS .ply, read back, served by
      `SplatEngine(blend_kernel="tile_xp")` through the HTTP viewer (raw,
-     PNG and half-size frames fetched from localhost); then CUDA-event
+     PNG and half-size frames fetched from localhost), the SH kernel
+     (csrc/sh_colors.cu, S1) launched once a served frame; then CUDA-event
      times of `SplatEngine.frame` with "tile" and "tile_xp", interleaved,
-     by stage, and the two kernels alone at that stream
+     by stage, and the two kernels alone at that stream; S1 alone on the
+     scene's 1M splats and on 2M in the benchmark's layout (the
+     coefficients rows of one (3, 15, N) tensor, the camera a row of a
+     (V, 3) tensor): its lit colours bit-equal to the plain path, its
+     device time (the profiler's, L2 written over before each launch, and
+     warm), the call's and the plain path's, beside its bound (216 bytes a
+     splat over HBM bandwidth)
  11. datagen: `render_gbuffer` at the 1M @1080p headline stream (and kernel
      vs method="tiles" on a 100k @512x512 cut: the plain tile compositor
      walks the pair stream 1024 pairs at a time), the depth kernel alone vs
@@ -115,7 +122,7 @@ Beside each blend kernel's time at its stream it prints the share of the
 (record, warp) pairs that the kernels' warp-level culling removes there
 (computed with the culling test's plain mirror).
 
-It prints one JSON line describing the eight kernels (each with its launches
+It prints one JSON line describing the nine kernels (each with its launches
 on its path, its time, the twin's time and the least time the card could
 take for the same work),
 then, as its last line,
@@ -798,6 +805,50 @@ def coverage_u8(frame, background) -> float:
     return float((np.abs(frame.astype(np.float32) - bg).sum(-1) > 255.0 * BG_TOL).mean())
 
 
+def sh_kernel_alone(splats, sh, cam_pos, reps: int = 20) -> dict:
+    """S1 (`ops/sh_colors.py`) alone at these inputs: `apply_sh` one
+    launch a call and bit-equal to `apply_sh_plain` on the card; the
+    kernel's device time (the profiler's, with the 50 MB L2 written over
+    before each launch, and warm), the call's and the plain path's time
+    (CUDA events over calls back to back), beside the bound: 216 bytes a
+    splat once (6 planes and 45 coefficient rows read, 3 colour planes
+    written) over HBM bandwidth."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from splat_renderer_tpu_torch.ops.build import launches
+    from splat_renderer_tpu_torch.render.sh import apply_sh, apply_sh_plain
+
+    n = splats["px"].shape[0]
+    call = lambda: apply_sh(splats, sh, cam_pos)  # noqa: E731
+    plain = lambda: apply_sh_plain(splats, sh, cam_pos)  # noqa: E731
+    before = launches["sh_colors"]
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    check(launches["sh_colors"] == before + 1, f"SH at {n} splats: not one launch a call")
+    differ = {c: int((got[c].view(torch.int32) != want[c].view(torch.int32)).sum())
+              for c in ("cr", "cg", "cb")}
+    check(not any(differ.values()), f"SH at {n} splats: kernel vs plain path differ {differ}")
+    del got, want
+    call_ms = elapsed_ms(call, reps)
+    plain_ms = elapsed_ms(plain, 5)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=splats["px"].device)
+    kernel_ms = {}
+    for cold in (True, False):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if cold:
+                    flush.fill_(0)
+                call()
+            torch.cuda.synchronize()
+        kernel_ms[cold] = sum(e.self_device_time_total for e in prof.key_averages()
+                              if "sh_colors_kernel" in e.key) / 1e3 / reps
+        check(kernel_ms[cold] > 0, f"SH at {n} splats: the profiler saw no sh_colors_kernel")
+    del flush
+    return dict(ms=kernel_ms[True], warm_ms=kernel_ms[False], call_ms=call_ms,
+                plain_ms=plain_ms, bound=(n * 216 / HBM_BYTES_S * 1e3, "bytes"))
+
+
 def phase10_static_scene(dev, card: str, workdir: str, n: int = 1_000_000):
     """Static-scene serving at full width: .ply with SH degree 3 (kept in
     `workdir` for phase 13) -> SplatEngine (tile_xp) -> the HTTP viewer;
@@ -812,6 +863,7 @@ def phase10_static_scene(dev, card: str, workdir: str, n: int = 1_000_000):
     from splat_renderer_tpu_torch import Camera, PointConfig, RenderConfig
     from splat_renderer_tpu_torch.camera import camera_tensors
     from splat_renderer_tpu_torch.ops.build import launches
+    from splat_renderer_tpu_torch.ops.sh_colors import PLANES
     from splat_renderer_tpu_torch.ops.tile_blend import blend_tiles, blend_tiles_plain
     from splat_renderer_tpu_torch.render.pipeline import SplatEngine, demo_scene, model_points
     from splat_renderer_tpu_torch.render.sh import apply_sh
@@ -863,6 +915,9 @@ def phase10_static_scene(dev, card: str, workdir: str, n: int = 1_000_000):
     xp_launches = launches["tile_blend_xp"]
     check(xp_launches >= served >= 4,
           f"tile_blend_xp launched {xp_launches} times for {served} served frames")
+    sh_launches = launches["sh_colors"]
+    check(sh_launches >= served, f"the SH kernel launched {sh_launches} times for {served} "
+          "served frames")
     check(len(raw1) == len(raw2) == width * height * 3, f"raw frame bytes {len(raw1)}")
     check(len(half) == (width // 2) * (height // 2) * 3, f"half frame bytes {len(half)}")
     check((int(h4["x-w"]), int(h4["x-h"])) == (width // 2, height // 2),
@@ -898,7 +953,7 @@ def phase10_static_scene(dev, card: str, workdir: str, n: int = 1_000_000):
         f"half raw {len(half)} B in {ms4:.1f} ms (host clock, first request warms up; "
         f"X-Render-Ms {h1['x-render-ms']} / {h2['x-render-ms']} / "
         f"{h3['x-render-ms']} / {h4['x-render-ms']}); tile_blend_xp launches "
-        f"{xp_launches}; coverage {min(cov):.3f}..{max(cov):.3f} (> {COVERAGE_FLOOR}); moved "
+        f"{xp_launches}, sh_colors launches {sh_launches}; coverage {min(cov):.3f}..{max(cov):.3f} (> {COVERAGE_FLOOR}); moved "
         f"camera changed the frame by {moved:.2f} levels mean; SH shifts colours by "
         f"{sh_shift:.4f} between azimuths 0.5 and 2.0, lit vs unlit frame {unlit:.4f}; {card}")
 
@@ -969,8 +1024,24 @@ def phase10_static_scene(dev, card: str, workdir: str, n: int = 1_000_000):
         + "; ".join(f"{k} " + " / ".join(f"{v:.3f}" for v in vs) for k, vs in t.items())
         + f"; plain twin (eps 0) {plain_ms:.3f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}); tile_xp "
         f"vs tile bit-equal, vs twin max-abs {err:.3g}; {card}")
+
+    # ---- the SH kernel alone: this scene's 1M, and 2M in the benchmark's layout ----
+    del binned, k1, k3, plain
+    coef = torch.stack([sh[c] for c in ("r", "g", "b")])
+    wide = {k: torch.cat([splats[k], splats[k]]) for k in PLANES}
+    coef = torch.cat([coef, coef], dim=2)
+    cams = torch.stack([cam_at(0.5)["cam_pos"], cam_at(2.0)["cam_pos"]])
+    s1 = {"1M": sh_kernel_alone(splats, sh, cam["cam_pos"]),
+          "2M": sh_kernel_alone(wide, dict(zip(("r", "g", "b"), coef)), cams[1])}
+    del wide, coef
+    log("phase 10: sh_colors (S1) alone, degree 3: lit colours bit-equal to the plain path, "
+        "one launch a call; " + "; ".join(
+            f"{k}: kernel {v['ms']:.4f} ms (device, profiler, L2 written over before each "
+            f"launch; warm {v['warm_ms']:.4f}), call {v['call_ms']:.4f} ms (CUDA events, 20 "
+            f"calls), plain path {v['plain_ms']:.3f} ms; bound {v['bound'][0]:.4f} ms, "
+            f"{100 * v['bound'][0] / v['ms']:.1f}% of it" for k, v in s1.items()) + f"; {card}")
     return dict(launches=xp_launches, err=err, ms=statistics.mean(t["tile_xp eps 0"]),
-                plain_ms=plain_ms, bound=bnd, ply=path)
+                plain_ms=plain_ms, bound=bnd, ply=path, sh=dict(s1["1M"], launches=sh_launches))
 
 
 def phase11_datagen(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_000,
@@ -2399,6 +2470,10 @@ def main() -> None:
         entry("bin_words", "splat_renderer_tpu_torch/csrc/bin_words.cu", "none",
               bin_launches, 0.0, p18["ms"], p18["plain_ms"], p18["bound"],
               call_ms=p18["call_ms"]),
+        # bit-equal to the plain path; launches: the SplatEngine frames served
+        entry("sh_colors", "splat_renderer_tpu_torch/csrc/sh_colors.cu", "none",
+              p10["sh"]["launches"], 0.0, p10["sh"]["ms"], p10["sh"]["plain_ms"],
+              p10["sh"]["bound"], call_ms=p10["sh"]["call_ms"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

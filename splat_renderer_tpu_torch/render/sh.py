@@ -5,15 +5,20 @@ Counterpart of `splat_renderer_tpu/render/sh.py`.  Coefficients are a
 or 15 rest coefficients for degree 1, 2 or 3; the DC band lives in the
 base colour), evaluated along the camera -> splat direction as elementwise
 plane math.  The basis is the real SH of 3DGS in its coefficient order.
+`apply_sh` launches one CUDA kernel (`ops/sh_colors.py`) for CUDA tensors
+through which no gradient can flow; it computes the plain path
+`apply_sh_plain` per splat, bit for bit.  The CPU and autograd take the
+plain path.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from .._torch_util import clip
+from ..ops.sh_colors import PLANES, sh_colors
 from ..points.properties import Splats
 from ..utils.profiling import span
 
@@ -35,6 +40,11 @@ SH_C3 = (
     1.445305721320277,
     -0.5900435899266435,
 )
+
+# added to the squared camera -> splat distance before its rsqrt
+SQ_LENGTH_FLOOR = 1e-20
+# the scalars above as the SH kernel takes them (csrc/sh_colors.cu Consts)
+KERNEL_SCALARS = (-SH_C1, SH_C1, *SH_C2, *SH_C3, SQ_LENGTH_FLOOR)
 
 _REST_PER_DEGREE = {0: 0, 1: 3, 2: 8, 3: 15}
 
@@ -88,6 +98,14 @@ def sh_basis_planes(
     return tuple(out)
 
 
+def kernel_takes(tensors: Sequence[torch.Tensor]) -> bool:
+    """Whether the SH kernel takes a call on these inputs: every one on
+    CUDA, and no gradient can flow (grad mode off, or no input requires
+    one).  Reads no device value."""
+    return (all(t.is_cuda for t in tensors)
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)))
+
+
 @span("sh")
 def apply_sh(
     splats: Splats, sh: Optional[SHCoeffs], cam_pos: torch.Tensor,
@@ -96,7 +114,24 @@ def apply_sh(
     """View-dependent colour for one camera position: new splats whose
     cr/cg/cb are clip(base + sum_k basis_k(dir) * coeff_k, 0, 1), dir the
     unit vector from the camera to the splat.  `sh=None` (or degree 0)
-    only clips the base colour; `degree` truncates the bands evaluated."""
+    only clips the base colour; `degree` truncates the bands evaluated.
+    On CUDA inputs through which no gradient can flow (`kernel_takes`),
+    one launch of the SH kernel (`ops/sh_colors.py`; it raises on inputs
+    it does not take), counted in `ops/build.py`'s `launches`; otherwise
+    `apply_sh_plain`."""
+    full = sh_degree(sh)
+    degree = full if degree is None else min(degree, full)
+    if degree > 0 and kernel_takes(
+            [*(splats[k] for k in PLANES), sh["r"], sh["g"], sh["b"], cam_pos]):
+        return sh_colors(splats, sh, cam_pos, degree, KERNEL_SCALARS)
+    return apply_sh_plain(splats, sh, cam_pos, degree)
+
+
+def apply_sh_plain(
+    splats: Splats, sh: Optional[SHCoeffs], cam_pos: torch.Tensor,
+    degree: Optional[int] = None,
+) -> Splats:
+    """`apply_sh` as plane operations, on any device and under autograd."""
     full = sh_degree(sh)
     degree = full if degree is None else min(degree, full)
     out = dict(splats)
@@ -107,7 +142,7 @@ def apply_sh(
     dx = splats["px"] - cam_pos[0]
     dy = splats["py"] - cam_pos[1]
     dz = splats["pz"] - cam_pos[2]
-    inv = torch.rsqrt(dx * dx + dy * dy + dz * dz + 1e-20)
+    inv = torch.rsqrt(dx * dx + dy * dy + dz * dz + SQ_LENGTH_FLOOR)
     basis = sh_basis_planes(dx * inv, dy * inv, dz * inv, degree)
     for ch, field in (("r", "cr"), ("g", "cg"), ("b", "cb")):
         c = splats[field]

@@ -23,6 +23,7 @@ from splat_renderer_tpu_torch.ops.tile_blend import blend_tiles
 from splat_renderer_tpu_torch.ops.tile_blend_diff import blend_planes
 from splat_renderer_tpu_torch.render.binning import bin_packed_words
 from splat_renderer_tpu_torch.render.projector import splat_screen_words
+from splat_renderer_tpu_torch.render.sh import apply_sh
 
 STREAM = 0x5EED
 
@@ -143,6 +144,8 @@ def _blend_planes(cfg):
 
 
 CPU_PATHS = {
+    "apply_sh": lambda cfg: apply_sh(_splats(), {c: torch.full((15, 60), 0.1) for c in "rgb"},
+                                     torch.tensor([0.0, 0.0, 3.0])),
     "blend_tiles": lambda cfg: blend_tiles(bin_packed_words(*_words(cfg), cfg), cfg),
     "blend_planes": _blend_planes,
     "splat_screen_words": _words,

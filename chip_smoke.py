@@ -18,7 +18,9 @@ static-scene serving and datagen paths, and checks the images.  Phases:
   3. Engine.frame, 1M splats at 1920x1080 on 32x16 tiles (cap 4), 5
      animated frames: finite images, coverage above a floor, and the
      kernel's launch count; per-stage CUDA-event times
-  4. the same Engine on the opaque oriented surface preset, 2 frames
+  4. the same Engine on the opaque oriented surface preset with quads at
+     cap 16 (the benchmark cell `surface_1m_1080p`'s settings), 2 frames,
+     then a third with the recorder on: its pairs and K1's walk
   5. one 1280x720 frame through the kernel and through the twin, and a
      small frame against the exact oracle
   6. the differentiable blend's forward (K4) and backward (K5) kernels vs
@@ -2336,16 +2338,24 @@ def main() -> None:
         f"warp) pairs), max-abs {d_main:.3g}; {card}")
     log(f"phase 3: that stream's tiles: {tile_load(binned)}; {heaviest_tile(binned, rcfg)}")
 
-    # ---- phase 4: opaque oriented surface preset, 2 frames ----
+    # ---- phase 4: the surface preset's quads at cap 16, 2 frames ----
+    from splat_renderer_tpu_torch.utils import profiling
+
     scene4 = demo_scene()
-    eng4 = Engine(scene4, pcfg, spt.surface_render_config(1920, 1080, tiles_per_splat_cap=8),
+    eng4 = Engine(scene4, pcfg, spt.surface_render_config(1920, 1080, quad=True,
+                                                          tiles_per_splat_cap=16),
                   n=1_000_000, device=dev)
     before = k1_launches()
     frame_ms4, shares4 = run_frames(eng4, 2, 0.5, 10)
     check(k1_launches() - before == 2, "surface frames did not launch the kernel")
-    log(f"phase 4: surface preset Engine n={eng4.n} @1920x1080, 2 frames: coverage "
+    with profiling.recording() as rec4:
+        run_frames(eng4, 1, 1.0, 12)
+    pairs4, walked4 = rec4.counter("pairs"), rec4.counter("blend_walked")
+    check(0 < walked4 <= pairs4, f"surface frame: K1 walked {walked4} of {pairs4} pairs")
+    log(f"phase 4: surface quads Engine n={eng4.n} @1920x1080 16x16 cap 16, 2 frames: coverage "
         f"{min(shares4):.3f}..{max(shares4):.3f}; frame ms "
-        + " ".join(f"{t:.2f}" for t in frame_ms4))
+        + " ".join(f"{t:.2f}" for t in frame_ms4)
+        + f"; a recorded frame: {int(pairs4)} pairs, K1 walked {int(walked4)}")
 
     # ---- phase 5: mid-size frame, kernel vs twin; small frame vs oracle ----
     scene5 = demo_scene()

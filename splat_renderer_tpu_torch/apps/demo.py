@@ -29,7 +29,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--surface", action="store_true",
-                    help="opaque surface mode (the reference's live path)")
+                    help="opaque surface mode (the upstream app's live path): "
+                         "surface-oriented quads at full size (cap 16)")
     ap.add_argument("--width", type=int, default=1280)
     ap.add_argument("--height", type=int, default=720)
     ap.add_argument("--points", type=int, default=None)
@@ -60,7 +61,10 @@ def build(args: argparse.Namespace, device: torch.device
 
     scene = demo_scene()
     if args.surface:
-        rcfg = surface_render_config(args.width, args.height, tiles_per_splat_cap=8)
+        # the upstream's quads, at full size: cap 16 (r_cap 16 px at 16-px
+        # tiles) clamps none of them at 1080p, where cap 8 halves most
+        rcfg = surface_render_config(args.width, args.height, quad=True,
+                                     tiles_per_splat_cap=16)
     else:
         rcfg = RenderConfig(width=args.width, height=args.height, base_radius=0.015,
                             tiles_per_splat_cap=8, aa_dilation=args.aa)

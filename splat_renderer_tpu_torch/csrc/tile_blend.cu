@@ -101,6 +101,13 @@
 // * Early stop: a pixel takes nothing more once its T <= eps (after the
 //   record that brought it there).  At eps = 0 only pixels whose T is
 //   exactly 0 stop; in a deep tile most do, by underflow.
+// * The walk counter (tile_blend_kernel only): with BlendParams::walked
+//   set, each CTA adds, with one atomic at its end, the run positions its
+//   tile's walk took: its longest warp's, each warp's up to the end of the
+//   32-record group in which its last pixel stopped, or the whole run.  The
+//   plain twin counts the same walk at its exact stop, so the two differ by
+//   less than one group a nonempty tile.  Null, nothing is counted; the
+//   outputs are the same bits either way.
 //
 // Bit-level parity: the support cutoff is a hard threshold (one ulp in d2
 // flips a pixel's alpha by ~0.011), so d2, the ellipse rotation, the
@@ -139,6 +146,7 @@ struct BlendParams {
   int tiles_x;
   int tile_w;
   int tile_h;
+  long long* walked;      // nullable: the walk counter (file note)
 };
 
 // The binner's tables and the kernels' outputs (device pointers).
@@ -498,6 +506,7 @@ __device__ __forceinline__ void run(const Stream& st, const int* __restrict__ ti
     // rectangle changes no output
     Rect rc = warp_cull::warp_rect(q.px, q.py, alive);
     bool stopped = alive_mask == 0u;
+    int stop_at;  // !XP: the walk's end, set where every pixel of the warp has stopped
 
     while (!stopped && c0.t == t) {
       // this step's records, 32 at a time, in run order
@@ -525,6 +534,7 @@ __device__ __forceinline__ void run(const Stream& st, const int* __restrict__ ti
             alive_mask = now;
             if (now == 0u) {
               stopped = true;
+              if (!XP) stop_at = min(c0.base + 32 * (i + 1), c0.end);
               break;
             }
             rc = warp_cull::warp_rect(q.px, q.py, alive);
@@ -542,9 +552,30 @@ __device__ __forceinline__ void run(const Stream& st, const int* __restrict__ ti
       load_ranks(st, c2, lane, rk);
     }
     if (tid < tp) store_pixel<WITH_DEPTH>(st, t, tp, pix, q);
+    if (!XP && p.walked != nullptr) {
+      // the warp's walk, kept in its own staging slot, which its one tile no
+      // longer uses (no pixel is alive at all where eps >= 1)
+      __syncwarp();
+      if (lane == 0) {
+        const int end = !(1.0f > p.eps) ? st.offsets[t] : stopped ? stop_at : st.offsets[t + 1];
+        *reinterpret_cast<int*>(slots) = end - st.offsets[t];
+      }
+    }
     // every pixel of the warp stopped before the tile's run ended: the
     // registers hold later steps of that tile; start over at the next tile
     if (stopped) prime(rnd + 1);
+  }
+  if (!XP && p.walked != nullptr) {
+    // the tile's walk is its longest warp's
+    __syncthreads();
+    if (tid == 0) {
+      int most = 0;
+      for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
+        most = max(most, *reinterpret_cast<const int*>(smem + w * (2 * 32 * kVecs)));
+      }
+      atomicAdd(reinterpret_cast<unsigned long long*>(p.walked),
+                static_cast<unsigned long long>(most));
+    }
   }
 }
 
@@ -638,6 +669,10 @@ int block_threads(int tile_w, int tile_h) { return (tile_w * tile_h + 31) / 32 *
 // (tile_blend_xp_kernel), which visits only the listed tiles; the caller
 // zeroes the outputs.
 //
+// walked (one int64 on the device, or null): the per-tile kernel adds the
+// run positions each tile's walk took (the file note's walk counter); the
+// persistent kernel takes none.
+//
 // Launches on `stream` without synchronising; returns the CUDA error code
 // of the launch (0 = success).
 extern "C" int tile_blend_forward(const int* offsets, const int* pair_rank,
@@ -651,10 +686,11 @@ extern "C" int tile_blend_forward(const int* offsets, const int* pair_rank,
                                   float pos_offset, float min_r, float margin2,
                                   float neg_inv_2sigma2, float eps,
                                   float inv_color, float inv_angle,
-                                  float inv_ratio, float pi, void* stream) {
+                                  float inv_ratio, float pi, long long* walked,
+                                  void* stream) {
   const BlendParams p{inv_ps,    pos_offset, min_r,     margin2, neg_inv_2sigma2,
                       eps,       inv_color,  inv_angle, inv_ratio, pi,
-                      tiles_x,   tile_w,     tile_h};
+                      tiles_x,   tile_w,     tile_h,    walked};
   const Stream st{offsets,  pair_rank,  rec_pos,    rec_ro,    rec_rgb,
                   rec_depth, tile_color, tile_alpha, tile_depth};
   const int with_depth = (rec_depth != nullptr && tile_depth != nullptr) ? 1 : 0;
@@ -664,6 +700,7 @@ extern "C" int tile_blend_forward(const int* offsets, const int* pair_rank,
   if ((tile_list != nullptr) != (n_list != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (walked != nullptr && tile_list != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = block_threads(tile_w, tile_h);
   if (threads > 1024 || num_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -27,6 +27,15 @@ adds a third output: the premultiplied depth sum under the colour's weights.
 The launch counter `launches` of `ops/build.py` counts them under the
 kernel's key, one of `KERNELS`.
 
+While the recorder of `utils/profiling.py` is on, the program counter
+`blend_walked` adds the run positions each tile's walk took before every
+pixel of the tile had stopped (or the run was over): on the card the
+per-tile kernel adds them into a device scalar, one atomic a CTA, with no
+read-back (its warps stop at the end of a 32-record group, so it reads up
+to 31 positions a nonempty tile above the twin); the twin counts them at
+its exact stop; the persistent schedule counts nothing.  Off, no buffer is
+made and the kernel is handed none.
+
 Returns (tile_color (T, tp, 3), tile_alpha (T, tp)) float32, plus tile_depth
 (T, tp) with depth; tiles with no records come out as zeros.
 """
@@ -40,7 +49,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..config import RenderConfig
-from ..utils.profiling import span
+from ..utils.profiling import count, enabled, span
 from .._torch_util import maximum, minimum
 from ..render.blend import segmented_exclusive_product, splat_alpha_planes
 from ..render.packing import (
@@ -61,7 +70,8 @@ SCHEDULES = ("tile", "tile_xp")
 KERNELS = ("tile_blend", "tile_blend_depth", "tile_blend_xp", "tile_blend_xp_depth")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FORWARD = Entry("tile_blend", "tile_blend_forward", [_P] * 11 + [_I] * 6 + [_F] * 10 + [_P])
+_FORWARD = Entry("tile_blend", "tile_blend_forward",
+                 [_P] * 11 + [_I] * 6 + [_F] * 10 + [_P, _P])
 _LAUNCH_INFO = Entry("tile_blend", "tile_blend_launch_info", [_I] * 6 + [_P])
 
 
@@ -217,6 +227,7 @@ def blend_tiles(
     tile_alpha = alloc((num_tiles, tp), dtype=torch.float32, device=device)
     tile_depth = alloc((num_tiles, tp), dtype=torch.float32, device=device) if with_depth else None
     tile_list, n_list = nonempty_tiles(binned["counts"]) if xp else (None, None)
+    walked = None if xp or not enabled() else torch.zeros((), dtype=torch.int64, device=device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     _FORWARD.launch(
         device,
@@ -231,9 +242,11 @@ def blend_tiles(
         1.0 / cfg.pos_scale, cfg.pos_offset, cfg.min_screen_radius,
         cfg.bounds_margin * cfg.bounds_margin,
         -0.5 / (cfg.sigma * cfg.sigma), eps,
-        INV_COLOR_SCALE, INV_ANGLE_SCALE, INV_RATIO_SCALE, math.pi,
+        INV_COLOR_SCALE, INV_ANGLE_SCALE, INV_RATIO_SCALE, math.pi, ptr(walked),
         count=("tile_blend_xp" if xp else "tile_blend") + ("_depth" if with_depth else ""),
     )
+    if walked is not None:
+        count("blend_walked", walked)
     if with_depth:
         return tile_color, tile_alpha, tile_depth
     return tile_color, tile_alpha
@@ -257,7 +270,9 @@ def blend_tiles_plain(
     at chunk granularity: a pixel whose transmittance is <= eps at a chunk's
     start takes no contribution from it.  with_depth also folds each
     record's depth (`rec_depth`, read as float32) under the colour's
-    weights and returns it third.
+    weights and returns it third.  While the recorder is on it counts
+    `blend_walked`: each tile's run positions up to the first after which
+    every pixel's transmittance is <= eps, or the whole run.
     """
     eps = cfg.transmittance_eps if eps is None else float(eps)
     offsets = binned["offsets"]
@@ -281,6 +296,9 @@ def blend_tiles_plain(
         depth = torch.zeros((num_tiles, tp), dtype=torch.float32, device=device)
     color = torch.zeros((num_tiles, tp, 3), dtype=torch.float32, device=device)
     trans = torch.ones((num_tiles, tp), dtype=torch.float32, device=device)
+    counting = enabled()
+    if counting:  # each tile's first run position after which its pixels have all stopped
+        stop = torch.full((num_tiles,), n_pairs, dtype=torch.int64, device=device)
     for lo in range(0, n_pairs, pair_chunk):
         hi = min(lo + pair_chunk, n_pairs)
         tiles = binned["pair_tile"][lo:hi].to(torch.int64)
@@ -302,10 +320,19 @@ def blend_tiles_plain(
         color.index_add_(0, tiles, weight[:, :, None] * rgb[ranks][:, None, :])
         if with_depth:
             depth.index_add_(0, tiles, weight * rec_d[ranks][:, None])
+        if counting:
+            done = ((carry * (t_local * q)) <= eps).all(1)
+            at = torch.arange(lo, hi, device=device)
+            stop.scatter_reduce_(0, tiles, torch.where(done, at, n_pairs), "amin")
         # a tile's run inside a chunk is one segment: fold its product at
         # the segment's last pair
         ends = torch.cat([~same, same.new_ones(1)])
         trans[tiles[ends]] *= (t_local * q)[ends]
+    if counting:
+        starts, ends = offsets[:-1].to(torch.int64), offsets[1:].to(torch.int64)
+        walked = (torch.minimum(stop + 1, ends) - starts).sum()
+        # at eps >= 1 no pixel is alive before the first record, as in the kernel
+        count("blend_walked", walked if 1.0 > eps else torch.zeros_like(walked))
     if with_depth:
         return color, 1.0 - trans, depth
     return color, 1.0 - trans

@@ -137,7 +137,9 @@ def test_demo_builds_what_the_jax_script_serves(monkeypatch, extra):
     """The port's `demo.build` against the engine and animation the JAX
     package's `demo.py` hands to `serve`, at the same arguments: the same
     render configuration and point count, and the same scene parameters
-    after the animation at a few times."""
+    after the animation at a few times.  With --surface the port draws the
+    upstream app's quads at full size (`quad=True`, cap 16), where the JAX
+    script draws opaque ellipses at cap 8; nothing else differs."""
     jax_demo = importlib.import_module("demo")
     served = {}
 
@@ -151,7 +153,11 @@ def test_demo_builds_what_the_jax_script_serves(monkeypatch, extra):
         jax_demo.main()
     eng, animate = demo.build(demo.parse_args(extra + ["--device", "cpu"]), torch.device("cpu"))
     want = served["engine"]
-    assert dataclasses.asdict(eng.rcfg) == dataclasses.asdict(want.rcfg)
+    want_rcfg = dataclasses.asdict(want.rcfg)
+    if "--surface" in extra:
+        assert (want_rcfg["quad"], want_rcfg["tiles_per_splat_cap"]) == (False, 8)
+        want_rcfg.update(quad=True, tiles_per_splat_cap=16)
+    assert dataclasses.asdict(eng.rcfg) == want_rcfg
     assert dataclasses.asdict(eng.pcfg) == dataclasses.asdict(want.pcfg)
     assert eng.n == want.n
     for t in (0.0, 0.7, 2.5):

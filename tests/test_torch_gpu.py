@@ -17,6 +17,7 @@ from splat_renderer_tpu_torch.ops.build import launches
 from splat_renderer_tpu_torch.ops.tile_blend import KERNELS, blend_tiles, blend_tiles_plain
 from splat_renderer_tpu_torch.render.binning import bin_packed_words, canonical_order
 from splat_renderer_tpu_torch.render.projector import splat_screen_words
+from splat_renderer_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -42,16 +43,17 @@ def k1_launches() -> int:
     return sum(launches[k] for k in KERNELS)
 
 
-def _binned(device, cfg, seed=0, n=4000, with_depth=False, presort=False):
+def _binned(device, cfg, seed=0, n=4000, with_depth=False, presort=False,
+            radius=(0.005, 0.08), opacity=(0.2, 1.0)):
     rng = np.random.default_rng(seed)
     pos = rng.uniform(-1, 1, (n, 3))
     nrm = rng.normal(size=(n, 3))
     nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
     planes = {
         "px": pos[:, 0], "py": pos[:, 1], "pz": pos[:, 2],
-        "radius": rng.uniform(0.005, 0.08, n), "cr": rng.uniform(0, 1, n),
+        "radius": rng.uniform(*radius, n), "cr": rng.uniform(0, 1, n),
         "cg": rng.uniform(0, 1, n), "cb": rng.uniform(0, 1, n),
-        "opacity": rng.uniform(0.2, 1.0, n),
+        "opacity": rng.uniform(*opacity, n),
         "nx": nrm[:, 0], "ny": nrm[:, 1], "nz": nrm[:, 2],
     }
     spl = splats_from_numpy(planes, device)
@@ -197,6 +199,40 @@ def test_kernel_rejects_what_it_cannot_run(cuda):
     binned["pair_rank"] = binned["pair_rank"].to(torch.int64)
     with pytest.raises(ValueError, match="int32"):
         blend_tiles(binned, cfg)
+
+
+WALK_TILES = {"16x16": dict(tile_size=16), "32x32": dict(tile_size=32)}
+
+
+@pytest.mark.parametrize("with_depth", [False, True], ids=["rgb", "depth"])
+@pytest.mark.parametrize("tiles", sorted(WALK_TILES))
+@pytest.mark.parametrize("profile", ["quad", "opaque"])
+def test_walk_counter_leaves_the_image_and_counts_the_walk(cuda, profile, tiles, with_depth):
+    """K1 with the walk counter on (the recorder on) writes the same bits as
+    with it off; its `blend_walked` lies between the twin's (the exact stop,
+    on the same stream on the card) and the twin's plus 31 a nonempty tile
+    (its warps stop at the end of a 32-record group); the persistent
+    schedule counts nothing.  Opaque splats at opacity 1, dense enough that
+    most tiles stop early; the image within 2e-5 of the twin's."""
+    cfg = tpt.RenderConfig(width=200, height=120, tiles_per_splat_cap=16,
+                           **PROFILES[profile], **WALK_TILES[tiles])
+    binned = _binned(cuda, cfg, n=20000, with_depth=with_depth, radius=(0.02, 0.1),
+                     opacity=(1.0, 1.0))
+    off = blend_tiles(binned, cfg, with_depth=with_depth)
+    with profiling.recording() as rec:
+        on = blend_tiles(binned, cfg, with_depth=with_depth)
+        blend_tiles(binned, cfg, schedule="tile_xp", with_depth=with_depth)
+    with profiling.recording() as twin_rec:
+        plain = blend_tiles_plain(binned, cfg, with_depth=with_depth)
+    torch.cuda.synchronize()
+    for x, y in zip(on, off):
+        assert torch.equal(x, y)
+    for x, y in zip(on[:2], plain[:2]):
+        assert float((x - y).abs().max()) <= 2e-5
+    k1, twin = rec.counter("blend_walked"), twin_rec.counter("blend_walked")
+    nonempty = int((binned["counts"] > 0).sum())
+    assert twin <= k1 <= twin + 31 * nonempty
+    assert twin < 0.7 * int(binned["offsets"][-1])
 
 
 # ---- the differentiable blend: forward (K4) and backward (K5) kernels ----

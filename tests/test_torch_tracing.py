@@ -4,7 +4,9 @@ or a batch records nothing and gives the outputs it gives on; on, the
 spans of a frame, a step and a batch form the layer tree, a parent's time
 covers its children's, the pair counter sums the binnings' pair counts,
 the `cov3d_splats` counter the Gaussians projected and `cov3d_capped`
-those at the radius cap, `recording()` nests,
+those at the radius cap, `blend_walked` each tile's walk as the reference's
+fold needs it (and the kernel's wrapper hands the kernel a buffer for it
+only while recording), `recording()` nests,
 and `trace()` writes the spans into its Chrome trace."""
 
 import json
@@ -20,7 +22,8 @@ from splat_renderer_tpu_torch.points import gaussian_splats
 from splat_renderer_tpu_torch.render import binning
 from splat_renderer_tpu_torch.render.multiview import render_views, render_views_gbuffer
 from splat_renderer_tpu_torch.render.pipeline import Engine, SplatEngine, demo_scene
-from splat_renderer_tpu_torch.render.projector import shade_planes
+from splat_renderer_tpu_torch.ops.tile_blend import blend_tiles
+from splat_renderer_tpu_torch.render.projector import shade_planes, splat_screen_words
 from splat_renderer_tpu_torch.utils import profiling
 
 W, H = 96, 64
@@ -294,3 +297,101 @@ def test_trace_writes_the_frame_span(tmp_path):
     names = {e.get("name") for e in json.load(open(os.path.join(log_dir, profiling.TRACE_FILE)))
              ["traceEvents"]}
     assert {"splat/frame", "splat/model/descent", "splat/blend"} <= names
+
+
+def _dense_binned(cfg, n=4000, seed=0):
+    """Binned records of n splats dense enough on the small frame that the
+    opaque profiles stop most tiles early; opaque splats at opacity 1."""
+    g = torch.Generator().manual_seed(seed)
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(n, generator=g)  # noqa: E731
+    nrm = torch.randn((3, n), generator=g)
+    nrm = nrm / torch.linalg.vector_norm(nrm, dim=0)
+    splats = {"px": u(-0.6, 0.6), "py": u(-0.6, 0.6), "pz": u(-0.6, 0.6),
+              "radius": u(0.05, 0.15), "cr": u(0, 1), "cg": u(0, 1), "cb": u(0, 1),
+              "opacity": torch.ones(n) if cfg.opaque else u(0.2, 1.0),
+              "nx": nrm[0], "ny": nrm[1], "nz": nrm[2]}
+    cam = _camera()
+    w = splat_screen_words(splats, cam["view_proj"], cam["cam_pos"], cfg)
+    return binning.bin_packed_words(w["dk"], w["w_pos"], w["w_ro"], w["w_rgb"], cfg)
+
+
+def _one_tile(binned, t):
+    """`binned` with every tile's run but tile t's emptied."""
+    off = binned["offsets"].to(torch.int64)
+    a, b = int(off[t]), int(off[t + 1])
+    offsets = torch.where(torch.arange(off.shape[0]) <= t, 0, b - a).to(binned["offsets"].dtype)
+    counts = torch.zeros_like(binned["counts"])
+    counts[t] = b - a
+    return dict(binned, offsets=offsets, counts=counts, pair_rank=binned["pair_rank"][a:b],
+                pair_tile=binned["pair_tile"][a:b])
+
+
+WALK_PROFILES = {"quad": dict(opaque=True, oriented=True, quad=True),
+                 "opaque": dict(opaque=True, oriented=True),
+                 "gauss": dict()}
+
+
+@pytest.mark.parametrize("profile", sorted(WALK_PROFILES))
+def test_blend_walked_is_the_reference_folds_walk_tile_by_tile(profile):
+    """The twin's `blend_walked`, tile by tile, equals the run positions the
+    reference's exact fold reads before every pixel of the tile has stopped
+    (`fold_blend`'s "pairs" on the tile's run alone), and the frame's count
+    is their sum; the opaque profiles stop most tiles early.  (The Gaussian
+    profile's twin rounds its products unlike the fold; no stop moves here.)"""
+    import dataclasses
+
+    from gpubench.reference.config import RenderConfig as RefRenderConfig
+    from gpubench.reference.frame import fold_blend
+
+    cfg = tpt.RenderConfig(width=W, height=H, tiles_per_splat_cap=16, **WALK_PROFILES[profile])
+    rcfg = RefRenderConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+    binned = _dense_binned(cfg)
+    walks, want = [], []
+    for t in range(cfg.num_tiles):
+        one = _one_tile(binned, t)
+        with profiling.recording() as rec:
+            blend_tiles(one, cfg)
+        walks.append(rec.counter("blend_walked"))
+        want.append(fold_blend(one, rcfg)[2]["pairs"])
+    assert walks == want
+    with profiling.recording() as rec:
+        blend_tiles(binned, cfg)
+    assert rec.counter("blend_walked") == sum(want)
+    if cfg.opaque:
+        assert sum(want) < 0.7 * int(binned["offsets"][-1])
+
+
+def test_the_kernel_gets_a_walk_buffer_only_while_recording(monkeypatch):
+    """On a (fake) CUDA device `blend_tiles` hands K1 a device buffer for
+    `blend_walked` only while the recorder is on and only with the per-tile
+    schedule, and counts it under the open root span without reading it;
+    off, it hands none and records nothing."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+
+    from splat_renderer_tpu_torch.ops import tile_blend
+
+    handed = []
+
+    class Forward:
+        def launch(self, device, *args, count=None):
+            handed.append((count, args[-1]))
+
+    monkeypatch.setattr(tile_blend, "_FORWARD", Forward())
+    monkeypatch.setattr(FakeTensor, "data_ptr", lambda self: 0x1000, raising=False)
+    cfg = tpt.RenderConfig(width=W, height=H, opaque=True, oriented=True, quad=True)
+    with FakeTensorMode():
+        dev = torch.device("cuda", 0)
+        binned = {k: torch.zeros(n, dtype=torch.int32, device=dev)
+                  for k, n in (("offsets", cfg.num_tiles + 1), ("counts", cfg.num_tiles),
+                               ("pair_rank", 8), ("rec_pos", 8), ("rec_ro", 8),
+                               ("rec_rgb", 8))}
+        tile_blend.blend_tiles(binned, cfg)
+        off = set(profiling.report())
+        with profiling.recording() as rec:
+            with profiling.span("frame"):
+                tile_blend.blend_tiles(binned, cfg)
+                tile_blend.blend_tiles(binned, cfg, schedule="tile_xp")
+            counted = set(rec.counts)
+    assert not off
+    assert handed == [("tile_blend", None), ("tile_blend", 0x1000), ("tile_blend_xp", None)]
+    assert counted == {("blend_walked", "frame")}

@@ -105,10 +105,11 @@ static-scene serving and datagen paths, and checks the images.  Phases:
      `render_splats` bit for bit; each band's records and pairs, and its
      record selection, bin and `render_band` times beside the frame's
  17. the projector kernel (csrc/project_words.cu) at the headline shape:
-     the demo scene's 1M splats at 1920x1080 (the modeler's stride-3
-     columns) on the isotropic, the surface (foreshortened, opaque) and an
-     EWA config with the dilation: its five outputs bit-equal to the plain
-     path, its device time (the profiler's, L2 written over before each
+     the demo scene's 1M splats at 1920x1080 as `model_points` hands them
+     to the frame (rows of M1's one (11, N) tensor) on the isotropic, the
+     surface (foreshortened, opaque) and an EWA config with the dilation:
+     its five outputs bit-equal to the plain path, on those rows and,
+     untimed, on the plain modeler's stride-3 columns; its device time (the profiler's, L2 written over before each
      launch, and warm) and its call time beside its bound (bytes over HBM
      bandwidth) and the plain path's call time
  18. the binner's kernels (csrc/bin_words.cu, B1) on the demo scene's 1M
@@ -119,12 +120,20 @@ static-scene serving and datagen paths, and checks the images.  Phases:
      written over before each call), the call's time and the
      plain path's, beside the bytes of the design's passes over HBM
      bandwidth
+ 19. the modeler's kernels (csrc/sdf_model.cu, M1) on the demo scene's 1M
+     points, on the headline config and the surface preset of
+     `surface_1m_1080p`: `model_points`' eleven planes bit-equal to the
+     plain path's, one launch of each kernel a call; the descent's and the
+     probe's device times (the profiler's, L2 written over before each
+     call, and warm), the call's and the plain path's, beside the bound:
+     the bytes once, the FP32 operations and the SFU results a point
+     (`model_work`), whichever takes longest
 
 Beside each blend kernel's time at its stream it prints the share of the
 (record, warp) pairs that the kernels' warp-level culling removes there
 (computed with the culling test's plain mirror).
 
-It prints one JSON line describing the nine kernels (each with its launches
+It prints one JSON line describing the ten kernels (each with its launches
 on its path, its time, the twin's time and the least time the card could
 take for the same work),
 then, as its last line,
@@ -185,6 +194,22 @@ OPS = {  # kernel -> (support-test flops, flops inside, SFU ops inside)
     # transmittance 2, w = gC.c + gD.d 7, dL/da from the prefix and the
     # totals 8, its chain to op, r, cx, cy 14, colour and depth 8
     "tile_blend_diff_bwd": (6, 43, 1),
+}
+
+
+# Operations per SDF evaluation of one node that the modeler needs (M1,
+# csrc/sdf_model.cu), by node kind: (FP32 flops, SFU results).  A divide or
+# a square root counts as one flop and one SFU result (its reciprocal or
+# reciprocal square root); a branch the node does not take counts nothing,
+# and a node whose work depends on the branch counts its cheaper branch,
+# so the bound stays a floor: the box (and the round box) inside, where
+# its gradient is a face's axis and it divides nothing (outside: 3
+# divides more).
+MODEL_OPS = {
+    "sphere": (14, 4), "box": (33, 1), "torus": (23, 6), "capsule": (20, 4),
+    "cylinder": (32, 5), "ellipsoid": (52, 24), "round_box": (40, 1),
+    "union": (1, 0), "intersection": (1, 0), "subtraction": (5, 0),
+    "smooth_union": (24, 2), "smooth_intersection": (32, 2), "smooth_subtraction": (32, 2),
 }
 
 
@@ -1931,10 +1956,13 @@ def phase16_parallel(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_
 def phase17_projector(dev, card: str, headline_cfg, headline_cam, n: int = 1_000_000,
                       reps: int = 20) -> dict:
     """The projector kernel at the headline shape: the demo scene's splats
-    as the modeler makes them (position and normal as stride-3 columns) at
-    headline_cfg's 1920x1080, on three configs (isotropic, the surface
-    preset's foreshortened ellipses, EWA with the dilation).  Each: the
-    kernel's five outputs bit-equal to `splat_screen_words_plain`; the
+    as `model_points` returns them on the card (each plane a row of one
+    (11, N) tensor, as Engine frames hand them to P1), at headline_cfg's
+    1920x1080, on three configs (isotropic, the surface preset's
+    foreshortened ellipses, EWA with the dilation).  Each: the kernel's
+    five outputs bit-equal to `splat_screen_words_plain`, on those rows and
+    (untimed) on position and normal as the plain modeler's stride-3
+    columns; on the rows, the
     kernel's device time (the profiler's, a launch, with the L2 cache
     written over before each launch, and warm), the call's time (CUDA
     events over `reps` calls back to back, so the host's issuing counts)
@@ -1954,7 +1982,14 @@ def phase17_projector(dev, card: str, headline_cfg, headline_cam, n: int = 1_000
     scene = demo_scene()
     splats = model_points(scene, scene.params(dev), torch.Generator(device=dev).manual_seed(17),
                           n, spt.PointConfig(), headline_cfg, device=dev)
-    check(splats["px"].stride(0) == 3, "the modeler's positions are no longer columns")
+    check(splats["px"].stride(0) == 1 and splats["nz"].stride(0) == 1,
+          "the modeler's planes are no longer rows")
+    # the plain modeler's layout: position and normal as stride-3 columns
+    columns = dict(splats)
+    for keys in (("px", "py", "pz"), ("nx", "ny", "nz")):
+        cols = torch.stack([splats[k] for k in keys], dim=1)
+        columns.update({k: cols[:, j] for j, k in enumerate(keys)})
+    check(columns["px"].stride(0) == 3, "the positions are not stride-3 columns")
     vp, cp = headline_cam["view_proj"], headline_cam["cam_pos"]
     bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t  # noqa: E731
     n_bytes = n * (11 * 4 + 4 * 8 + 4)
@@ -1975,6 +2010,14 @@ def phase17_projector(dev, card: str, headline_cfg, headline_cam, n: int = 1_000
         check(launches["project_words"] == before + 1, f"{name}: not one launch a call")
         differ = {k: int((bits(got[k]) != bits(want[k])).sum()) for k in want}
         check(not any(differ.values()), f"{name}: kernel vs plain path differ {differ}")
+        got_c = splat_screen_words(columns, vp, cp, cfg)
+        want_c = splat_screen_words_plain(columns, vp, cp, cfg)
+        torch.cuda.synchronize()
+        check(launches["project_words"] == before + 2, f"{name}: not one launch a call")
+        differ = {k: int((bits(got_c[k]) != bits(want_c[k])).sum()) for k in want_c}
+        check(not any(differ.values()),
+              f"{name}: kernel vs plain path differ on stride-3 columns {differ}")
+        del got_c, want_c
         call_ms = elapsed_ms(call, reps)
         plain_ms = elapsed_ms(plain, 5)
         call_ms_2 = elapsed_ms(call, reps)
@@ -1997,7 +2040,8 @@ def phase17_projector(dev, card: str, headline_cfg, headline_cam, n: int = 1_000
         ms = kernel_ms[True]
         valid = int(torch.isfinite(got["depth"]).sum())
         log(f"phase 17: project_words {name} at {n} splats @{cfg.width}x{cfg.height} ({valid} "
-            f"in front): five outputs bit-equal to the plain path; kernel {ms:.4f} ms (device, "
+            f"in front, M1's rows): five outputs bit-equal to the plain path, and on "
+            f"stride-3 columns; kernel {ms:.4f} ms (device, "
             f"profiler, L2 written over before each launch; warm {kernel_ms[False]:.4f}), call {call_ms:.4f} / {call_ms_2:.4f} ms (CUDA events, {reps} calls), "
             f"plain path {plain_ms:.3f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}: {n_bytes / 1e6:.0f} "
             f"MB), {100 * bnd[0] / ms:.1f}% of it; {card}")
@@ -2120,6 +2164,114 @@ def phase18_binner(dev, card: str, headline_cfg, headline_cam, reps: int = 10) -
     return out["demo_1m_32x16_cap4"]
 
 
+def model_work(program, steps: int):
+    """(flops, SFU results) a point of the modeler needs with this program
+    (`sdf/program.py`) and `steps` descent steps: the seed's face choice
+    and mapping (11 flops), each step's evaluation and move (length, clamp,
+    three divides, three multiplies and subtractions: 17 flops, 4 SFU), the
+    probe's 7 evaluations each with its tap's offset and normal (11, 4), the
+    6 taps' variations (6 each) and the mean, smoothstep, scale and colour
+    (24)."""
+    from splat_renderer_tpu_torch.sdf.program import CODES
+
+    kind = {code: cls.kind for cls, code in CODES.items()}
+    ev_f = sum(MODEL_OPS[kind[c]][0] for c, _ in program.code)
+    ev_s = sum(MODEL_OPS[kind[c]][1] for c, _ in program.code)
+    flops = 11 + steps * (ev_f + 17) + 7 * (ev_f + 11) + 6 * 6 + 24
+    sfu = steps * (ev_s + 4) + 7 * (ev_s + 4)
+    return flops, sfu
+
+
+def phase19_modeler(dev, card: str, headline_cfg, n: int = 1_000_000, reps: int = 20) -> dict:
+    """The modeler's kernels (M1, csrc/sdf_model.cu) on the demo scene at n
+    points, animated, on the headline config (Gaussian splats) and on the
+    surface preset of `surface_1m_1080p`: `model_points`' splat planes
+    bit-equal to the plain path's (`seed_scene_points`, then the plain
+    descent, probe and derivation), one launch each of "sdf_descent" and
+    "sdf_probe" a call in the launch counter; each kernel's device time (the
+    profiler's, the 50 MB L2 written over before each call, and warm), the
+    call's time (CUDA events over `reps` calls back to back: the
+    generator's draws and the host's issuing count) and the plain path's,
+    beside the bound: the larger of the bytes once (uniforms 12 a point in,
+    positions 12 out and back, 32 of the other planes out) over HBM
+    bandwidth and the operations (`model_work`) over the FP32 and SFU
+    rates.  Returns the headline config's numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import splat_renderer_tpu_torch as spt
+    from splat_renderer_tpu_torch.ops.build import launches
+    from splat_renderer_tpu_torch.points import seed_scene_points
+    from splat_renderer_tpu_torch.render import pipeline
+    from splat_renderer_tpu_torch.render.pipeline import animate_demo, demo_scene, model_points
+    from splat_renderer_tpu_torch.sdf.program import program_for
+
+    scene, pcfg = demo_scene(), spt.PointConfig()
+    animate_demo(scene, 0.7)
+    params = scene.params(dev)
+    flops, sfu = model_work(program_for(scene), pcfg.descent_steps)
+    n_bytes = n * (12 + 12 + 12 + 32)
+    bounds = {"bytes": n_bytes / HBM_BYTES_S * 1e3, "flops": n * flops / FP32_FLOP_S * 1e3,
+              "SFU": n * sfu / SFU_OP_S * 1e3}
+    by = max(bounds, key=bounds.get)
+    bnd = (bounds[by], by)
+    cfgs = {"gaussian": headline_cfg,
+            "surface": spt.surface_render_config(headline_cfg.width, headline_cfg.height,
+                                                 quad=True, tile_size=16,
+                                                 tiles_per_splat_cap=16)}
+    out = {}
+    for name, cfg in cfgs.items():
+        gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)  # noqa: E731
+        call = lambda: model_points(scene, params, gen(19), n, pcfg, cfg, device=dev)  # noqa: E731
+
+        def plain():
+            pts = seed_scene_points(gen(19), scene, params, n, pcfg)
+            return pipeline._plain_splats(scene, params, pts, pcfg, cfg)
+
+        before = launches["sdf_descent"], launches["sdf_probe"]
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        check((launches["sdf_descent"], launches["sdf_probe"]) == (before[0] + 1, before[1] + 1),
+              f"modeler {name}: not one launch of each kernel a call")
+        differ = {k: int((got[k].view(torch.int32) != want[k].view(torch.int32)).sum())
+                  for k in want}
+        check(list(got) == list(want) and not any(differ.values()),
+              f"modeler {name}: kernels vs plain path differ {differ}")
+        del got, want
+        call_ms = elapsed_ms(call, reps)
+        plain_ms = elapsed_ms(plain, 3)
+        call_ms_2 = elapsed_ms(call, reps)
+        flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+        kernel_ms = {}
+        for cold in (True, False):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    if cold:
+                        flush.fill_(0)
+                    call()
+                torch.cuda.synchronize()
+            for k in ("sdf_descent_kernel", "sdf_probe_kernel"):
+                kernel_ms[cold, k] = sum(e.self_device_time_total for e in prof.key_averages()
+                                         if k in e.key) / 1e3 / reps
+                check(kernel_ms[cold, k] > 0, f"modeler {name}: the profiler saw no {k}")
+        del flush
+        d_ms, c_ms = kernel_ms[True, "sdf_descent_kernel"], kernel_ms[True, "sdf_probe_kernel"]
+        ms = d_ms + c_ms
+        log(f"phase 19: sdf_model {name} at {n} points, {pcfg.descent_steps} steps, "
+            f"{len(program_for(scene).code)} nodes: 11 planes bit-equal to the plain path, one "
+            f"launch each a call; descent {d_ms:.4f} + probe {c_ms:.4f} = {ms:.4f} ms (device, "
+            f"profiler, L2 written over before each call; warm "
+            f"{kernel_ms[False, 'sdf_descent_kernel']:.4f} + "
+            f"{kernel_ms[False, 'sdf_probe_kernel']:.4f}), call {call_ms:.4f} / {call_ms_2:.4f} "
+            f"ms (CUDA events, {reps} calls, the draws included), plain path {plain_ms:.3f} ms; "
+            f"bound {bnd[0]:.4f} ms ({by}: {n_bytes / 1e6:.0f} MB {bounds['bytes']:.4f}, "
+            f"{flops} flops a point {bounds['flops']:.4f}, {sfu} SFU results a point "
+            f"{bounds['SFU']:.4f}), {100 * bnd[0] / ms:.1f}% of it; {card}")
+        out[name] = dict(ms=ms, descent_ms=d_ms, probe_ms=c_ms, call_ms=min(call_ms, call_ms_2),
+                         plain_ms=plain_ms, bound=bnd)
+    return out["gaussian"]
+
+
 def main() -> None:
     import torch
 
@@ -2154,7 +2306,8 @@ def main() -> None:
     log(smi)
     card = smi  # name and power limit, beside every time
     t0 = time.perf_counter()
-    sources = ("tile_blend", "tile_blend_diff", "probe_rate", "project_words", "bin_words")
+    sources = ("tile_blend", "tile_blend_diff", "probe_rate", "project_words", "bin_words",
+               "sdf_model")
     build.build_all(sources)  # one nvcc per source, in parallel
     for name in sources:
         build.load_library(name)
@@ -2267,13 +2420,16 @@ def main() -> None:
     main_launches = launches["tile_blend"]
     proj_launches = launches["project_words"]
     bin_launches = launches["bin_words"]
+    model_launches = launches["sdf_descent"], launches["sdf_probe"]
     check(main_launches == k1_launches(), "Engine frames launched another kernel")
     check(main_launches >= 5, f"tile_blend launched {main_launches} times in 5 frames")
     check(proj_launches == 5, f"the projector kernel launched {proj_launches} times in 5 frames")
     check(bin_launches == 5, f"the binner's kernels ran {bin_launches} times in 5 frames")
+    check(model_launches == (5, 5),
+          f"the modeler's kernels (descent, probe) launched {model_launches} times in 5 frames")
     log(f"phase 3: Engine 1M @1920x1080 32x16 cap 4, 5 frames: tile_blend launches "
         f"{main_launches}, project_words launches {proj_launches}, bin_words calls "
-        f"{bin_launches}; coverage {min(shares):.3f}..{max(shares):.3f} "
+        f"{bin_launches}, sdf_descent and sdf_probe launches {model_launches}; coverage {min(shares):.3f}..{max(shares):.3f} "
         f"(> {COVERAGE_FLOOR}); frame ms (CUDA events) "
         + " ".join(f"{t:.2f}" for t in frame_ms))
 
@@ -2425,6 +2581,9 @@ def main() -> None:
 
     # ---- phase 18: the binner's kernels at three shapes, the headline's first ----
     p18 = phase18_binner(dev, card, rcfg, cam)
+
+    # ---- phase 19: the modeler's kernels at the headline's 1M points ----
+    p19 = phase19_modeler(dev, card, rcfg)
     log(f"phases 13-16: {t14 - t13:.1f} / {t15 - t14:.1f} / {t16 - t15:.1f} / "
         f"{time.perf_counter() - t16:.1f} s (host clock); the script so far "
         f"{time.perf_counter() - t_start:.1f} s; {card}")
@@ -2484,6 +2643,12 @@ def main() -> None:
         entry("sh_colors", "splat_renderer_tpu_torch/csrc/sh_colors.cu", "none",
               p10["sh"]["launches"], 0.0, p10["sh"]["ms"], p10["sh"]["plain_ms"],
               p10["sh"]["bound"], call_ms=p10["sh"]["call_ms"]),
+        # bit-equal to the plain path; launches: phase 3's frames, one
+        # descent and one probe each; ms: the two kernels' sum
+        entry("sdf_model", "splat_renderer_tpu_torch/csrc/sdf_model.cu", "none",
+              model_launches[0] + model_launches[1], 0.0, p19["ms"], p19["plain_ms"],
+              p19["bound"], call_ms=p19["call_ms"], descent_ms=p19["descent_ms"],
+              probe_ms=p19["probe_ms"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -13,7 +13,8 @@ at its first call, and checks its tensors with `check_tensor`.  `launches`
 counts kernel launches by kernel, for every wrapper: "tile_blend",
 "tile_blend_depth", "tile_blend_xp", "tile_blend_xp_depth" (K1's schedules
 and forms), "tile_blend_diff_forward", "tile_blend_diff_backward",
-"project_words", "bin_words" (one a binner call), "sh_colors" and
+"project_words", "bin_words" (one a binner call), "sh_colors",
+"sdf_descent" and "sdf_probe" (the modeler's two launches a frame) and
 "probe_rate";
 `launches.clear()` sets them all to 0.
 """

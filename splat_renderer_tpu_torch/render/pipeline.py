@@ -22,6 +22,7 @@ import torch
 from .._torch_util import check_device
 from ..camera import CameraArrays
 from ..config import PointConfig, RenderConfig
+from ..ops.sdf_model import descend, probe
 from ..points import (
     curvature_probe,
     derive_splats,
@@ -31,6 +32,7 @@ from ..points import (
 )
 from ..points.properties import Splats
 from ..sdf.primitives import Box, Sphere
+from ..sdf.program import STACK_LIMIT, Program, pack_params, program_for
 from ..sdf.scene import Params, SDFScene, smooth_union
 from ..utils.log import log_rebuild
 from ..utils.profiling import enabled, recording, span
@@ -41,6 +43,40 @@ from .projector import count_cov3d, splat_screen_records, splat_screen_words
 from .sh import apply_sh
 
 
+def modeler_program(scene: SDFScene, device) -> Optional[Program]:
+    """The scene's program for the modeler's kernels (`ops/sdf_model.py`)
+    on a CUDA `device`; None on the CPU, which takes the plain functions.
+    Raises ValueError on a CUDA device for a tree the kernels cannot
+    evaluate (`sdf/program.py`).  Reads no device value."""
+    if torch.device(device).type != "cuda":
+        return None
+    program = program_for(scene)
+    if program is None:
+        raise ValueError(
+            "the modeler's kernels cannot evaluate this scene: it is empty, or has a node "
+            "class sdf/program.py does not name, an operation short of two children or a "
+            f"tree needing a stack deeper than {STACK_LIMIT}")
+    return program
+
+
+def _kernel_splats(program: Program, block: torch.Tensor, pcfg: PointConfig,
+                   rcfg: RenderConfig, **start) -> Splats:
+    with span("model/descent"):
+        out = descend(program, block, pcfg, **start)
+    with span("model/curvature"):
+        return probe(program, block, out, pcfg, rcfg)
+
+
+def _plain_splats(scene: SDFScene, params: Params, pts: torch.Tensor, pcfg: PointConfig,
+                  rcfg: RenderConfig) -> Splats:
+    with span("model/descent"):
+        pts = project_to_surface(scene, params, pts, pcfg.descent_steps)
+    with span("model/curvature"):
+        normals, scales = curvature_probe(scene, params, pts, pcfg)
+    with span("model/derive"):
+        return derive_splats(pts, normals, scales, rcfg)
+
+
 def surface_splats(
     scene: SDFScene,
     params: Params,
@@ -48,13 +84,14 @@ def surface_splats(
     pcfg: PointConfig,
     rcfg: RenderConfig,
 ) -> Splats:
-    """Seed points -> k-step projection -> curvature -> splats."""
-    with span("model/descent"):
-        pts = project_to_surface(scene, params, pts, pcfg.descent_steps)
-    with span("model/curvature"):
-        normals, scales = curvature_probe(scene, params, pts, pcfg)
-    with span("model/derive"):
-        return derive_splats(pts, normals, scales, rcfg)
+    """Seed points -> k-step projection -> curvature -> splats: on CUDA two
+    launches of the modeler's kernels (the spans `model/descent` and
+    `model/curvature`), on the CPU the plain functions (and
+    `model/derive`)."""
+    program = modeler_program(scene, pts.device)
+    if program is None:
+        return _plain_splats(scene, params, pts, pcfg, rcfg)
+    return _kernel_splats(program, pack_params(program, params), pcfg, rcfg, pts=pts)
 
 
 def model_points(
@@ -68,15 +105,25 @@ def model_points(
     device,
 ) -> Splats:
     """The modeler stage: seed n points on `device` from `generator`, then
-    `surface_splats`."""
+    project, probe and derive the splats as `surface_splats` does.  On
+    CUDA the seeding keeps the plain path's draws and the descent kernel
+    maps them, so the splats are the plain path's bit for bit."""
     for prim_id, p in params.items():
         check_device(device, **{f"params[{prim_id!r}][{k!r}]": v for k, v in p.items()})
     if generator.device.type != torch.device(device).type:
         raise ValueError(f"generator is on {generator.device}, expected {device}")
     with span("model"):
+        program = modeler_program(scene, device)
+        if program is None:
+            with span("model/seed"):
+                pts = seed_scene_points(generator, scene, params, n, pcfg)
+            return _plain_splats(scene, params, pts, pcfg, rcfg)
         with span("model/seed"):
-            pts = seed_scene_points(generator, scene, params, n, pcfg)
-        return surface_splats(scene, params, pts, pcfg, rcfg)
+            # seed_points' draws, in its order; the kernel maps them
+            uf = torch.rand(n, generator=generator, device=generator.device)
+            uv = torch.rand((n, 2), generator=generator, device=generator.device)
+            block = pack_params(program, params)
+        return _kernel_splats(program, block, pcfg, rcfg, uniforms=(uf, uv))
 
 
 # blend_kernel names of the JAX package -> the port's blend schedules

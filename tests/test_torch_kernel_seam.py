@@ -22,6 +22,7 @@ from splat_renderer_tpu_torch.ops.probe_rate import probe_rate
 from splat_renderer_tpu_torch.ops.tile_blend import blend_tiles
 from splat_renderer_tpu_torch.ops.tile_blend_diff import blend_planes
 from splat_renderer_tpu_torch.render.binning import bin_packed_words
+from splat_renderer_tpu_torch.render.pipeline import demo_scene, model_points
 from splat_renderer_tpu_torch.render.projector import splat_screen_words
 from splat_renderer_tpu_torch.render.sh import apply_sh
 
@@ -134,6 +135,12 @@ def _words(cfg):
     return [w[k] for k in ("dk", "w_pos", "w_ro", "w_rgb")]
 
 
+def _model(cfg):
+    scene = demo_scene()
+    return model_points(scene, scene.params("cpu"), torch.Generator().manual_seed(0), 50,
+                        tpt.PointConfig(), cfg, device="cpu")
+
+
 def _blend_planes(cfg):
     rng = np.random.default_rng(1)
     n = 40
@@ -151,6 +158,7 @@ CPU_PATHS = {
     "splat_screen_words": _words,
     "bin_packed_words": lambda cfg: bin_packed_words(*_words(cfg), cfg),
     "probe_rate": lambda cfg: probe_rate(torch.rand(4, 8), repeats=3),
+    "model_points": _model,
 }
 
 
